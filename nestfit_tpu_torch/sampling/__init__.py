@@ -1,0 +1,10 @@
+from nestfit_tpu_torch.sampling.fit import FitResult, fit_batch
+from nestfit_tpu_torch.sampling.results import (
+    MARGINAL_COLS,
+    QUANTILES,
+    PosteriorProducts,
+    information_criteria,
+    posterior_products,
+    resolve_n_post,
+)
+from nestfit_tpu_torch.sampling.sampler import NSConfig, NSResult, run_nested

@@ -1,0 +1,43 @@
+"""The port stands alone: no module of ``nestfit_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or anything of ``nestfit_tpu``, and
+importing them builds no kernel."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import nestfit_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        nestfit_tpu_torch.__path__, "nestfit_tpu_torch."))
+    assert "nestfit_tpu_torch.sampling.sampler" in mods
+    build = ROOT / "nestfit_tpu_torch" / "_build"
+    before = sorted(build.glob("*")) if build.exists() else []
+    code = "\n".join(
+        ["import importlib, runpy, sys"]
+        + [f"importlib.import_module({m!r})" for m in mods]
+        + ["runpy.run_path('chip_smoke.py', run_name='chip_smoke')",
+           "bad = sorted(m for m in sys.modules if m == 'jax'"
+           " or m.startswith(('jax.', 'jaxlib'))"
+           " or m == 'nestfit_tpu' or m.startswith('nestfit_tpu.'))",
+           "print(len(sys.modules)); assert not bad, bad"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    after = sorted(build.glob("*")) if build.exists() else []
+    assert after == before
+
+
+def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path):
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((ROOT, "chip_smoke.py"), (tmp_path, str(alone))):
+        out = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
