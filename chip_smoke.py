@@ -4,23 +4,33 @@
 Phases, in order; any failure exits non-zero:
 
 1. device   -- require CUDA; print the card's name and power limit.
-2. build    -- compile the three Hopper kernels from ``nestfit_tpu_torch/
+2. build    -- compile the four Hopper kernels from ``nestfit_tpu_torch/
                csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels  -- hold K1 ``hf_chi2_fused``, K2 ``table_lerp`` and K3
-               ``tapered_invert`` against their plain PyTorch versions on
-               the same CUDA tensors at main-path shapes, and time them
-               (kernel, plain version, library call): device time per
-               call from ``torch.profiler``, and per-call time with CUDA
-               events, which also counts host gaps between launches.
-4. forward  -- ``loglike_unit`` at 256 px x 384 ch, ncomp 2, both
-               transitions: kernel path against plain path on the card.
+3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3, and N2H+ (1-0) and (3-2):
+               15 and 45 lines), K2 ``table_lerp``, K3 ``tapered_invert``
+               and K4 ``gauss_chi2_fused`` against their plain PyTorch
+               versions on the same CUDA tensors at main-path shapes, and
+               time them (kernel, plain version, library call): device
+               time per call from ``torch.profiler``, and per-call time
+               with CUDA events, which also counts host gaps between
+               launches.
+4. forward  -- ``loglike_unit`` at 256 px, ncomp 2, kernel path against
+               plain path on the card: NH3 (1,1)+(2,2) at 384 ch, the
+               Gaussian model at 380 ch, N2H+ (1-0)+(3-2) at 400 ch.
 5. ladder   -- ``fit_batch`` on a seeded synthetic NH3 (1,1)+(2,2) cube
                (``--pixels``, default 1024; noise 0.15), ncomp 1 then 2,
                nlive 100, tol 1.0, init_factor 4, segment_iters 250.  The
                kernels' launch counters are set to 0 before each rung and
                must have risen after it.
-6. profile  -- only with ``--profile N``: the rung of ncomp N again under
-               ``torch.profiler``: device time by kernel, busy share.
+6. gauss ladder -- the same on a seeded Gaussian-mixture cube on the NH3
+               (1,1) velocity axis (noise 0.15; half the pixels one
+               component, half two): lnZ2 - lnZ1 must clear 11 on the
+               two-component pixels and not on the others.
+7. n2h+ ladder  -- the same on a seeded two-component N2H+ (1-0) cube
+               (400 ch, noise 0.1).
+8. profile  -- only with ``--profile N``: the NH3 rung of ncomp N again
+               under ``torch.profiler``: device time by kernel, busy
+               share.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -39,6 +49,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 SFU_EXP_PER_CLOCK_PER_SM = 16
+
+LADDER = dict(nlive=100, tol=1.0, init_factor=4)
+GAUSS_NOISE, N2HP_NOISE = 0.15, 0.1
 
 
 def fail(msg):
@@ -93,6 +106,86 @@ def make_runner(xa, data, noise, ncomp, utrans):
     return AmmoniaRunner(spectra, utrans, ncomp=ncomp, device="cuda")
 
 
+def gauss_cube(n_pix, rng):
+    """A Gaussian-mixture cube on the NH3 (1,1) velocity axis (380 ch):
+    the first half of the pixels hold one component, the second half two
+    well separated ones (peaks 0.75-3 K, sigm 0.2-0.8 km/s, centroids
+    inside the +-4 km/s of ``get_gaussian_priors``).  Truth from the
+    float64 oracle.  Returns ``(xarr, rest_freq, data, ncomp_truth)``."""
+    from nestfit_tpu_torch import oracle
+    from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS
+    from nestfit_tpu_torch.utils import freq_axis_from_velocity
+
+    rest = AMMONIA_TRANSITIONS[0].nu
+    xarr = freq_axis_from_velocity(np.arange(-30, 30, 0.158), rest)
+    ncomp = np.where(np.arange(n_pix) < n_pix // 2, 1, 2)
+    data = np.empty((n_pix, xarr.shape[0]))
+    for i, n in enumerate(ncomp):
+        voff = rng.uniform(-2, 2, 1) if n == 1 else np.array(
+            [rng.uniform(-3, -1.5), rng.uniform(1.5, 3)])
+        params = np.concatenate([voff, rng.uniform(0.2, 0.8, n),
+                                 rng.uniform(0.75, 3, n)])
+        data[i] = oracle.gauss_predict(xarr, params, rest)
+    data += rng.normal(scale=GAUSS_NOISE, size=data.shape)
+    return xarr, rest, data, ncomp
+
+
+def n2hp_cube(n_pix, rng, trans_id=1):
+    """A two-component N2H+ cube (``arange(-20, 20, 0.1)``, 400 ch): voff
+    -1.5..-0.5 and 1-2.5 km/s above it, tex 4-10 K, log10 tau -0.5..0.5,
+    sigm 0.2-0.5 km/s.  Truth from the float64 oracle."""
+    from nestfit_tpu_torch import oracle
+    from nestfit_tpu_torch.models.tables import DIAZENYLIUM_TRANSITIONS
+    from nestfit_tpu_torch.utils import freq_axis_from_velocity
+
+    xarr = freq_axis_from_velocity(np.arange(-20, 20, 0.1),
+                                   DIAZENYLIUM_TRANSITIONS[trans_id - 1].nu)
+    data = np.empty((n_pix, xarr.shape[0]))
+    for i in range(n_pix):
+        v1 = rng.uniform(-1.5, -0.5)
+        params = np.concatenate([[v1, v1 + rng.uniform(1.0, 2.5)],
+                                 rng.uniform(4, 10, 2),
+                                 rng.uniform(-0.5, 0.5, 2),
+                                 rng.uniform(0.2, 0.5, 2)])
+        data[i] = oracle.nnhp_predict(xarr, params, trans_id=trans_id)
+    data += rng.normal(scale=N2HP_NOISE, size=data.shape)
+    return xarr, data
+
+
+def make_gauss_runner(xarr, rest, data, ncomp, utrans):
+    from nestfit_tpu_torch.models import GaussianRunner, gaussian
+
+    spec = gaussian.make_gaussian_spectrum(
+        xarr, data, np.full(data.shape[0], GAUSS_NOISE), rest_freq=rest,
+        device="cuda")
+    return GaussianRunner(spec, utrans, ncomp=ncomp, device="cuda")
+
+
+def make_n2hp_runner(cubes, ncomp, utrans):
+    """``cubes`` is ``[(trans_id, xarr, data), ...]``."""
+    from nestfit_tpu_torch.models import DiazenyliumRunner, diazenylium
+
+    spectra = [diazenylium.make_diazenylium_spectrum(
+        xa, d, np.full(d.shape[0], N2HP_NOISE), trans_id=tid, device="cuda")
+        for tid, xa, d in cubes]
+    return DiazenyliumRunner(spectra, utrans, ncomp=ncomp, device="cuda")
+
+
+def check_close(label, got, want, atol, rtol=2e-4):
+    """Fail unless ``got`` is finite and within ``atol + rtol |want|``;
+    returns the largest absolute error."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = atol + rtol * want.abs()
+    print(f"{label}: max_abs_err={err.max().item():.3e} "
+          f"max_err/tol={(err / tol).max().item():.3f}", flush=True)
+    if not bool(torch.all(err <= tol)) or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: the kernel disagrees with its plain version")
+    return err.max().item()
+
+
 def phase_kernels(seed, n_sm, clock_hz):
     """Hold each kernel against its plain version; returns the kernel
     records of the JSON line (without their launch counts)."""
@@ -121,19 +214,10 @@ def phase_kernels(seed, n_sm, clock_hz):
                 spec, flat, False, False)
             args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data,
                     *(x.contiguous() for x in (voff, tex, tau0, sigm)))
-            got = fused.hf_chi2_fused(*args)
-            want = fused.hf_chi2_plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            tol = 1e-3 + 2e-4 * want.abs()
-            print(f"K1 hf_chi2_fused ncomp={ncomp} trans={spec.trans_id} "
-                  f"B={T * R}: max_abs_err={err.max().item():.3e} "
-                  f"max_err/tol={(err / tol).max().item():.3f}", flush=True)
-            if not bool(torch.all(err <= tol)) or not bool(
-                    torch.isfinite(got).all()):
-                fail(f"K1 disagrees with its plain version (ncomp={ncomp}, "
-                     f"trans={spec.trans_id})")
-            worst = max(worst, err.max().item())
+            worst = max(worst, check_close(
+                f"K1 hf_chi2_fused ncomp={ncomp} trans={spec.trans_id} "
+                f"B={T * R}", fused.hf_chi2_fused(*args),
+                fused.hf_chi2_plain(*args), atol=1e-3))
             if ncomp == 2 and spec.trans_id == 1:
                 timing = args
     B, C, nhf = T * R, 2, timing[0].nhf
@@ -238,6 +322,74 @@ def phase_kernels(seed, n_sm, clock_hz):
         library_ms=None)
     print(f"K3 timing (sfact=1): kernel {ms:.4f} ms (per call {call:.4f} "
           f"ms), plain {plain_ms:.4f} ms", flush=True)
+
+    # ---- K4 at the Gaussian ladder's candidate round: D <= 6 gives
+    # kill_k = nlive / 2 = 50, so T = n_cand = 100; R = 1024, S = 380
+    from nestfit_tpu_torch.constants import CKMS
+    from nestfit_tpu_torch.models import gaussian
+    from nestfit_tpu_torch.priors import get_diazenylium_priors, \
+        get_gaussian_priors
+
+    R, T = 1024, 100
+    xarr, rest, data, _ = gauss_cube(R, np.random.default_rng(seed))
+    g_utrans = get_gaussian_priors(device="cuda")
+    worst = 0.0
+    for ncomp in (1, 2):
+        runner = make_gauss_runner(xarr, rest, data, ncomp, g_utrans)
+        spec = runner.spectra[0]
+        u = torch.as_tensor(rng.uniform(size=(T, R, 3 * ncomp)),
+                            dtype=torch.float32, device="cuda")
+        flat = runner.transform(u, plain=True).reshape(T * R, -1)
+        voff, sigm, peak = gaussian._components(spec, flat)
+        args = (spec.rest_freq / CKMS, spec.dnu, spec.data,
+                *(x.contiguous() for x in (voff, sigm, peak)))
+        worst = max(worst, check_close(
+            f"K4 gauss_chi2_fused ncomp={ncomp} B={T * R}",
+            fused.gauss_chi2_fused(*args), fused.gauss_chi2_plain(*args),
+            atol=1e-3))
+        timing = args
+    B, C, S = T * R, 2, spec.size
+    ms, call = time_ms(lambda: fused.gauss_chi2_fused(*timing), 20)
+    plain_ms, _ = time_ms(lambda: fused.gauss_chi2_plain(*timing), 3,
+                          warmup=1)
+    n_exp = B * C * S
+    t_exp = n_exp / (SFU_EXP_PER_CLOCK_PER_SM * n_sm * clock_hz)
+    t_fma = B * C * S * 4 / FP32_FLOP_PER_S
+    n_bytes = 4 * (3 * B * C + R * S + S + B)
+    t_mem = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(t_exp, t_fma)
+    records["gauss_chi2_fused"] = dict(
+        name="gauss_chi2_fused", route="cuda",
+        source="nestfit_tpu_torch/csrc/gauss_chi2.cu",
+        replaces="nestfit_tpu/ops/fused.py:233",
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_mem) * 1e3,
+        bound_by="operations" if t_ops >= t_mem else "bytes",
+        library_ms=None)
+    print(f"K4 timing (ncomp=2, B={B}, S={S}): kernel {ms:.4f} ms (per call "
+          f"{call:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{records['gauss_chi2_fused']['bound_ms']:.4f} ms ({n_exp:.3e} "
+          f"exp at {clock_hz / 1e6:.0f} MHz)", flush=True)
+
+    # ---- K1 on N2H+ (1-0) and (3-2), 15 and 45 lines, at the N2H+
+    # ladder's D = 8 candidate round: kill_k = nlive / 4, T = 50
+    from nestfit_tpu_torch.models import diazenylium
+
+    R, T = 1024, 50
+    n_utrans = get_diazenylium_priors(device="cuda")
+    for tid in (1, 3):
+        xa, d = n2hp_cube(R, np.random.default_rng(seed + tid), tid)
+        spec = make_n2hp_runner([(tid, xa, d)], 2, n_utrans).spectra[0]
+        u = torch.as_tensor(rng.uniform(size=(T * R, 8)),
+                            dtype=torch.float32, device="cuda")
+        theta = n_utrans.transform(u, 2, plain=True)
+        trans, voff, tex, tau0, sigm = diazenylium._component_params(
+            spec, theta)
+        args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data,
+                *(x.contiguous() for x in (voff, tex, tau0, sigm)))
+        check_close(f"K1 hf_chi2_fused N2H+ trans={tid} ({trans.nhf} lines) "
+                    f"ncomp=2 B={T * R}", fused.hf_chi2_fused(*args),
+                    fused.hf_chi2_plain(*args), atol=1e-3)
     return records
 
 
@@ -254,37 +406,45 @@ def phase_forward(seed):
     xa = [freq_axis_from_velocity(vaxis, AMMONIA_TRANSITIONS[t].nu)
           for t in (0, 1)]
     data = [rng.normal(scale=0.2, size=(n_pix, n_chan)) for _ in (0, 1)]
-    runner = make_runner(xa, data, 0.2, ncomp, get_irdc_priors(device="cuda"))
-    u = np.clip(0.5 + rng.normal(scale=0.1, size=(n_pix, 6 * ncomp)), 0, 1)
-    u = torch.as_tensor(u, dtype=torch.float32, device="cuda")
-    got = runner.loglike_unit(u)
-    want = runner.loglike_unit(u, plain=True)
-    torch.cuda.synchronize()
-    if got.shape != (n_pix,) or not bool(torch.isfinite(got).all()):
-        fail(f"forward step: bad lnL {tuple(got.shape)}")
-    err = (got - want).abs()
-    tol = 5e-2 + 2e-4 * want.abs()
-    print(f"forward: loglike_unit {n_pix} px x {n_chan} ch ncomp={ncomp}: "
-          f"max_abs_err={err.max().item():.3e} "
-          f"max_err/tol={(err / tol).max().item():.3f}", flush=True)
-    if not bool(torch.all(err <= tol)):
-        fail("forward step: kernel path disagrees with plain path")
+    from nestfit_tpu_torch.priors import get_diazenylium_priors, \
+        get_gaussian_priors
+
+    def unit(n_model):
+        u = np.clip(0.5 + rng.normal(scale=0.1, size=(n_pix, n_model * ncomp)),
+                    0, 1)
+        return torch.as_tensor(u, dtype=torch.float32, device="cuda")
+
+    checks = [(f"NH3 {n_chan} ch", make_runner(
+        xa, data, 0.2, ncomp, get_irdc_priors(device="cuda")), unit(6))]
+    xarr, rest, data, _ = gauss_cube(n_pix, rng)
+    cubes = [(tid, *n2hp_cube(n_pix, rng, tid)) for tid in (1, 3)]
+    checks += [
+        ("gaussian 380 ch", make_gauss_runner(
+            xarr, rest, data, ncomp, get_gaussian_priors(device="cuda")),
+         unit(3)),
+        ("n2h+ (1-0)+(3-2) 400 ch", make_n2hp_runner(
+            cubes, ncomp, get_diazenylium_priors(device="cuda")), unit(4))]
+    for label, runner, u in checks:
+        got = runner.loglike_unit(u)
+        if got.shape != (n_pix,):
+            fail(f"forward {label}: bad lnL shape {tuple(got.shape)}")
+        check_close(f"forward: {label} loglike_unit {n_pix} px "
+                    f"ncomp={ncomp}", got, runner.loglike_unit(u, plain=True),
+                    atol=5e-2)
 
 
-def phase_ladder(seed, n_pix, counters):
+def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
+    """``fit_batch`` rungs ncomp 1 then 2 on ``runner_for(ncomp)``.  Each
+    rung starts with every launch counter at 0; after it, the kernels in
+    ``need`` (and K3 on rung 2) must have risen and those in ``idle``
+    stayed at 0.  Returns ``(lnz by ncomp, launches by ncomp)``."""
     import torch
-    from nestfit_tpu_torch.priors import get_irdc_priors
     from nestfit_tpu_torch.sampling import NSConfig, fit_batch
-    from nestfit_tpu_torch.synth import make_synth_cube_arrays
 
-    noise = 0.15
-    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
-        n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
-    utrans = get_irdc_priors(device="cuda")
-    cfg = NSConfig(nlive=100, tol=1.0, init_factor=4)
+    cfg = NSConfig(**LADDER)
     lnz, launches = {}, {}
     for ncomp in (1, 2):
-        runner = make_runner((xa11, xa22), (d11, d22), noise, ncomp, utrans)
+        runner = runner_for(ncomp)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed + ncomp)
         for fn in counters.values():
@@ -300,28 +460,95 @@ def phase_ladder(seed, n_pix, counters):
         ncall = fit.ns.ncall.cpu().numpy().astype(np.int64)
         conv = fit.ns.converged.cpu().numpy()
         lnz[ncomp] = z
-        print(f"ladder rung ncomp={ncomp} R={n_pix}: wall {wall:.2f} s, "
+        print(f"{label} rung ncomp={ncomp} R={n_pix}: wall {wall:.2f} s, "
               f"evals/px {ncall.mean():.1f}, converged {int(conv.sum())}/"
               f"{n_pix}, lnZ median {np.median(z):.3f}, kernels "
               f"{json.dumps(launches[ncomp])}", flush=True)
         if not conv.all():
-            fail(f"rung {ncomp}: {int((~conv).sum())} runs not converged")
+            fail(f"{label} rung {ncomp}: {int((~conv).sum())} runs not "
+                 "converged")
         if not np.isfinite(z).all():
-            fail(f"rung {ncomp}: non-finite lnZ")
+            fail(f"{label} rung {ncomp}: non-finite lnZ")
         post = fit.products.posteriors
         if not bool(torch.isfinite(post).all()) or post.shape[0] != n_pix:
-            fail(f"rung {ncomp}: bad posterior samples")
-        need = ["hf_chi2_fused", "table_lerp"] + (
-            ["tapered_invert"] if ncomp == 2 else [])
-        for k in need:
+            fail(f"{label} rung {ncomp}: bad posterior samples")
+        for k in need + (["tapered_invert"] if ncomp == 2 else []):
             if launches[ncomp][k] <= 0:
-                fail(f"rung {ncomp}: kernel {k} never launched")
+                fail(f"{label} rung {ncomp}: kernel {k} never launched")
+        for k in idle:
+            if launches[ncomp][k] != 0:
+                fail(f"{label} rung {ncomp}: kernel {k} launched "
+                     f"{launches[ncomp][k]} times off its path")
+    return lnz, launches
+
+
+def phase_ladder(seed, n_pix, counters):
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    noise = 0.15
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
+    utrans = get_irdc_priors(device="cuda")
+    lnz, launches = run_ladder(
+        "ladder", lambda ncomp: make_runner(
+            (xa11, xa22), (d11, d22), noise, ncomp, utrans),
+        n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
+        ["gauss_chi2_fused"])
     gain = lnz[2] - lnz[1]
     print(f"ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
           f"{n_pix} two-component truth pixels", flush=True)
     if not np.median(gain) > 0:
         fail("ladder: median lnZ2 - lnZ1 is not positive")
-    return {k: launches[1][k] + launches[2][k] for k in counters}
+    return launches
+
+
+def phase_gauss_ladder(seed, n_pix, counters):
+    """The Gaussian-mixture ladder: K4 carries every likelihood."""
+    from nestfit_tpu_torch.priors import get_gaussian_priors
+
+    xarr, rest, data, truth = gauss_cube(n_pix,
+                                         np.random.default_rng(seed + 10))
+    utrans = get_gaussian_priors(device="cuda")
+    lnz, launches = run_ladder(
+        "gauss ladder", lambda ncomp: make_gauss_runner(
+            xarr, rest, data, ncomp, utrans),
+        n_pix, seed, counters, ["gauss_chi2_fused", "table_lerp"],
+        ["hf_chi2_fused"])
+    gain = lnz[2] - lnz[1]
+    g1, g2 = np.median(gain[truth == 1]), np.median(gain[truth == 2])
+    keep = gain > 11.0
+    print(f"gauss ladder: median lnZ2 - lnZ1 = {g2:.3f} over "
+          f"{int((truth == 2).sum())} two-component pixels, {g1:.3f} over "
+          f"{int((truth == 1).sum())} one-component pixels; a second "
+          f"component kept (> 11) on {int(keep[truth == 2].sum())} and "
+          f"{int(keep[truth == 1].sum())} of them", flush=True)
+    if not g2 > 11.0:
+        fail("gauss ladder: median lnZ2 - lnZ1 on two-component pixels "
+             "is not above 11")
+    if not g1 < 11.0:
+        fail("gauss ladder: median lnZ2 - lnZ1 on one-component pixels "
+             "is not below 11")
+    return launches
+
+
+def phase_n2hp_ladder(seed, n_pix, counters):
+    """The N2H+ (1-0) ladder: K1 at 15 lines carries every likelihood."""
+    from nestfit_tpu_torch.priors import get_diazenylium_priors
+
+    xarr, data = n2hp_cube(n_pix, np.random.default_rng(seed + 20))
+    utrans = get_diazenylium_priors(device="cuda")
+    lnz, launches = run_ladder(
+        "n2h+ ladder", lambda ncomp: make_n2hp_runner(
+            [(1, xarr, data)], ncomp, utrans),
+        n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
+        ["gauss_chi2_fused"])
+    gain = lnz[2] - lnz[1]
+    print(f"n2h+ ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
+          f"{n_pix} two-component truth pixels", flush=True)
+    if not np.median(gain) > 0:
+        fail("n2h+ ladder: median lnZ2 - lnZ1 is not positive")
+    return launches
 
 
 def phase_profile(seed, n_pix, ncomp):
@@ -368,7 +595,7 @@ def phase_profile(seed, n_pix, ncomp):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--pixels", type=int, default=1024,
-                    help="pixels of the synthetic cube the ladder fits")
+                    help="pixels of each synthetic cube the ladders fit")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, choices=(1, 2),
                     help="also profile the rung of this ncomp")
@@ -403,11 +630,17 @@ def main():
     phase_forward(args.seed)
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
                 "table_lerp": tables.table_lerp,
-                "tapered_invert": tables.tapered_invert}
-    launches = phase_ladder(args.seed, args.pixels, counters)
+                "tapered_invert": tables.tapered_invert,
+                "gauss_chi2_fused": fused.gauss_chi2_fused}
+    ladders = [phase_ladder(args.seed, args.pixels, counters),
+               phase_gauss_ladder(args.seed, args.pixels, counters),
+               phase_n2hp_ladder(args.seed, args.pixels, counters)]
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
 
+    # launches on the main paths: every rung of the three ladders
+    launches = {k: sum(rung[k] for lad in ladders for rung in lad.values())
+                for k in counters}
     kernels = [dict(records[k], launches=launches[k]) for k in counters]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

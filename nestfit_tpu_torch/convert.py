@@ -4,7 +4,8 @@ Each function takes one of the JAX package's objects as a plain dict of
 NumPy arrays and Python scalars (its dataclass fields by name) and
 returns the port's object on ``device``, so both packages can be fed the
 same spectra, prior tables and sampler state.  Array dtypes are kept
-(float32 stays float32, int32 int32, bool bool).  This module imports
+(float32 stays float32, int32 int32, bool bool).  ``device`` defaults to
+``"cuda"`` and raises without a card, as every entry point of the port.  This module imports
 nothing of JAX; the caller turns JAX arrays into NumPy.
 """
 
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from nestfit_tpu_torch.device import resolve_device
 from nestfit_tpu_torch.models.spectrum import Spectrum
 from nestfit_tpu_torch.priors.distributions import Distribution
 from nestfit_tpu_torch.sampling.sampler import NSResult, _State
@@ -23,6 +25,7 @@ def _tensor(x, device):
 
 
 def _build(cls, fields: dict, device, skip=()):
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
         if f.name in skip:
@@ -32,13 +35,13 @@ def _build(cls, fields: dict, device, skip=()):
     return kw
 
 
-def spectrum_from_dict(fields: dict, device="cpu") -> Spectrum:
+def spectrum_from_dict(fields: dict, device="cuda") -> Spectrum:
     """``Spectrum`` from the fields of ``nestfit_tpu.models.spectrum.
     Spectrum``."""
     return Spectrum(**_build(Spectrum, fields, device))
 
 
-def distribution_from_dict(fields: dict, device="cpu") -> Distribution:
+def distribution_from_dict(fields: dict, device="cuda") -> Distribution:
     """``Distribution`` from the tables and metadata of
     ``nestfit_tpu.priors.distributions.Distribution``."""
     return Distribution(**_build(Distribution, fields, device))
@@ -56,7 +59,7 @@ def state_from_dict(fields: dict, gen: torch.Generator) -> _State:
                   **kw)
 
 
-def result_from_dict(fields: dict, device="cpu") -> NSResult:
+def result_from_dict(fields: dict, device="cuda") -> NSResult:
     """``NSResult`` from the fields of ``nestfit_tpu.sampling.sampler.
     NSResult``."""
     return NSResult(**_build(NSResult, fields, device))

@@ -29,7 +29,10 @@
 namespace {
 
 constexpr int kMaxComp = 8;
-constexpr int kMaxLines = 32;
+// N2H+ (3-2) has 45 lines.  The three per-row tables below take
+// 3 * kRowsPerBlock * C * kMaxLines * 4 B: 36,864 B at C = 8, inside the
+// 48 KB of static shared memory a block may hold.
+constexpr int kMaxLines = 48;
 constexpr int kRowsPerBlock = 8;   // one warp per row
 
 template <int C>

@@ -22,6 +22,9 @@ from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS, Transition
 # Ammonia rotation constants, Coudert & Roueff (2006) A&A 449 855
 BROT = 298192.92e6
 CROT = 186695.86e6
+# Legacy constants, Poynter & Kakar (1975)
+BROT_OLD = 298117.06e6
+CROT_OLD = 186726.36e6
 
 # Partition function summed over J = 0..50
 NPART = 51
@@ -30,9 +33,6 @@ JORTH = _J_ALL[_J_ALL % 3 == 0]    # 17 ortho levels
 JPARA = _J_ALL[_J_ALL % 3 != 0]    # 34 para levels
 
 N_PARAMS = 6
-N = N_PARAMS
-NAME = "ammonia"
-TRANSITIONS = AMMONIA_TRANSITIONS
 
 
 def _level_energy_k(j, brot=BROT, crot=CROT):
@@ -141,5 +141,36 @@ def make_ammonia_spectrum(xarr, data, noise, trans_id=1, device="cuda",
                          trans_id=trans_id, device=device, **kw)
 
 
+N = N_PARAMS
+IX_VCEN = 0
+IX_SIGM = 4
+NAME = "ammonia"
 model_predict = amm_predict
 make_model_spectrum = make_ammonia_spectrum
+TRANSITIONS = AMMONIA_TRANSITIONS
+
+PAR_NAMES = ["voff", "trot", "tex", "ntot", "sigm", "orth"]
+PAR_NAMES_SHORT = ["v", "Tk", "Tx", "N", "s", "o"]
+TEX_LABELS = [
+    r"$v_\mathrm{lsr}$",
+    r"$T_\mathrm{rot}$",
+    r"$T_\mathrm{ex}$",
+    r"$\log(N_\mathrm{p})$",
+    r"$\sigma_\mathrm{v}$",
+    r"$f_\mathrm{o}$",
+]
+TEX_LABELS_WITH_UNITS = [
+    r"$v_\mathrm{lsr} \ [\mathrm{km\, s^{-1}}]$",
+    r"$T_\mathrm{rot} \ [\mathrm{K}]$",
+    r"$T_\mathrm{ex} \ [\mathrm{K}]$",
+    r"$\log(N) \ [\log(\mathrm{cm^{-2}})]$",
+    r"$\sigma_\mathrm{v} \ [\mathrm{km\, s^{-1}}]$",
+    r"$f_\mathrm{o}$",
+]
+
+
+def get_par_names(ncomp=None):
+    if ncomp is not None:
+        return [f"{label}{n}" for label in PAR_NAMES_SHORT
+                for n in range(1, ncomp + 1)]
+    return PAR_NAMES_SHORT

@@ -1,13 +1,14 @@
 """Runner layer: model + spectra + prior transform -> likelihood
-(port of ``Runner``/``AmmoniaRunner`` from ``nestfit_tpu/models/runner.py``).
+(port of ``nestfit_tpu/models/runner.py``).
 
 Broadcasting contract as in the JAX package: ``theta``/``u`` carry
 leading batch dims ``[..., R, ndim]`` whose last batch axis is aligned
 with the spectra's pixel axis.
 
 Which path runs follows the tensors' device: on CUDA the likelihood is
-one launch of the fused kernel per transition (``models.ammonia.
-fused_chi2``), on the CPU it is the plain ``amm_predict`` path.
+one launch of the model's fused kernel per spectrum (its ``fused_chi2``:
+K1 for NH3 and N2H+, K4 for the Gaussian mixture), on the CPU it is the
+model's plain ``model_predict`` path.
 ``plain=True`` takes the plain path on any device; it is the reference
 the kernels are held against.
 """
@@ -18,6 +19,8 @@ import torch
 
 from nestfit_tpu_torch.device import resolve_device
 from nestfit_tpu_torch.models import ammonia as _ammonia
+from nestfit_tpu_torch.models import diazenylium as _diazenylium
+from nestfit_tpu_torch.models import gaussian as _gaussian
 from nestfit_tpu_torch.models.spectrum import Spectrum
 
 
@@ -128,3 +131,21 @@ class AmmoniaRunner(Runner):
         super().__init__(spectra, utrans, ncomp=ncomp, device=device,
                          cold=cold, lte=lte)
 
+
+class GaussianRunner(Runner):
+    """Gaussian mixture model runner."""
+
+    model = _gaussian
+
+
+class DiazenyliumRunner(Runner):
+    """Diazenylium (N2H+) model runner."""
+
+    model = _diazenylium
+
+
+RUNNERS = {
+    "ammonia": AmmoniaRunner,
+    "gaussian": GaussianRunner,
+    "diazenylium": DiazenyliumRunner,
+}

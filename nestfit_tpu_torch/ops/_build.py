@@ -21,7 +21,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("hf_chi2.cu", "table_lerp.cu", "tapered_invert.cu")
+SOURCES = ("hf_chi2.cu", "table_lerp.cu", "tapered_invert.cu",
+           "gauss_chi2.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,14 +1,17 @@
-"""Independent float64 NumPy evaluation of the NH3 model (the physics
-part of ``nestfit_tpu/oracle.py``, copied): absolute frequencies, scalar
-loops, no relative-axis trick.  The synthetic cube generator uses it to
-make truth spectra.
+"""Independent float64 NumPy evaluation of the NH3, N2H+ and Gaussian
+models (the physics part of ``nestfit_tpu/oracle.py``, copied): absolute
+frequencies, scalar loops, no relative-axis trick.  The synthetic cube
+generator and ``chip_smoke.py`` use it to make truth spectra.
 """
 
 import numpy as np
 
 from nestfit_tpu_torch.constants import CKMS, CCMS, H, KB, TCMB
 from nestfit_tpu_torch.models.ammonia import BROT, CROT
-from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS
+from nestfit_tpu_torch.models.tables import (
+    AMMONIA_TRANSITIONS,
+    DIAZENYLIUM_TRANSITIONS,
+)
 
 
 def hf_tb(xarr, trans, voff, tex, tau_main, sigm, tcmb=TCMB):
@@ -89,4 +92,36 @@ def amm_predict(xarr, params, trans_id=1, cold=False, lte=False):
             tex = trot
         tau0 = amm_tau_main(trans, trot, tex, ntot, sigm, orth)
         pred += hf_tb(xarr, trans, voff, tex, tau0, sigm)
+    return pred
+
+
+def nnhp_predict(xarr, params, trans_id=1):
+    """Multi-component N2H+ spectrum (reference diazenylium.pyx:140-155)."""
+    params = np.asarray(params, dtype=np.float64)
+    ncomp = params.shape[0] // 4
+    trans = DIAZENYLIUM_TRANSITIONS[trans_id - 1]
+    pred = np.zeros_like(np.asarray(xarr, dtype=np.float64))
+    for i in range(ncomp):
+        voff = params[i]
+        tex = params[ncomp + i]
+        ltau = params[2 * ncomp + i]
+        sigm = params[3 * ncomp + i]
+        pred += hf_tb(xarr, trans, voff, tex, 10.0 ** ltau, sigm)
+    return pred
+
+
+def gauss_predict(xarr, params, rest_freq):
+    """Multi-component Gaussian spectrum (reference gaussian.pyx:17-50)."""
+    params = np.asarray(params, dtype=np.float64)
+    ncomp = params.shape[0] // 3
+    xarr = np.asarray(xarr, dtype=np.float64)
+    pred = np.zeros_like(xarr)
+    for i in range(ncomp):
+        voff = params[i]
+        sigm = params[ncomp + i]
+        peak = params[2 * ncomp + i]
+        nu_width = sigm / CKMS * rest_freq
+        nu_cen = rest_freq * (1 - voff / CKMS)
+        d = xarr - nu_cen
+        pred += peak * np.exp(-0.5 * d * d / (nu_width * nu_width))
     return pred

@@ -1,4 +1,9 @@
-from nestfit_tpu_torch.priors.constructors import get_irdc_priors
+from nestfit_tpu_torch.priors.constructors import (
+    get_diazenylium_priors,
+    get_gaussian_priors,
+    get_irdc_priors,
+    get_synth_priors,
+)
 from nestfit_tpu_torch.priors.distributions import (
     Distribution,
     cdf_interp,
@@ -8,8 +13,13 @@ from nestfit_tpu_torch.priors.distributions import (
     tapered_interval_invert,
 )
 from nestfit_tpu_torch.priors.priors import (
+    CenSepPrior,
     ConstantPrior,
+    DuplicatePrior,
+    OrderedPrior,
     Prior,
     PriorTransformer,
+    ResolvedCenSepPrior,
     ResolvedPlacementPrior,
+    SpacedPrior,
 )

@@ -1,12 +1,16 @@
 """Prior transforms: unit cube -> physical parameters
-(port of the main-path priors of ``nestfit_tpu/priors/priors.py``).
+(port of ``nestfit_tpu/priors/priors.py``).
 
 Every prior transforms its rows of the parameter cube
 ``theta[..., n_params, ncomp]`` (parameter-major layout); a
 :class:`PriorTransformer` applies them in sequence.  All transforms
 broadcast over leading batch dims.  ``apply`` writes into ``theta``,
 which :meth:`PriorTransformer.transform` allocates afresh for each call,
-so the caller's unit-cube tensor is never modified.
+so the caller's unit-cube tensor is never modified; a prior that reads
+its unit-cube row after writing part of it reads a copy.  Every table
+lookup goes through K2 (``ppf_interp``) or K3
+(``tapered_interval_invert``); ``plain=True`` takes their plain PyTorch
+versions on any device.
 """
 
 import torch
@@ -45,6 +49,26 @@ class Prior:
         return theta
 
 
+class DuplicatePrior(Prior):
+    """Draw once, write to two parameter rows (e.g. tex = tkin in LTE
+    synthetic fits)."""
+
+    n_param = 2
+
+    def __init__(self, dist, p_ix, p_ix_dup):
+        super().__init__(dist, p_ix)
+        if p_ix_dup < 0:
+            raise ValueError("p_ix_dup must be non-negative")
+        self.p_ix_dup = int(p_ix_dup)
+        self.unused_param_rows = (self.p_ix_dup,)
+
+    def apply(self, theta, ncomp, plain=False):
+        v = ppf_interp(self.dist, theta[..., self.p_ix, :], plain)
+        theta[..., self.p_ix, :] = v
+        theta[..., self.p_ix_dup, :] = v
+        return theta
+
+
 class ConstantPrior(Prior):
     """Fixed value."""
 
@@ -60,6 +84,113 @@ class ConstantPrior(Prior):
     def apply(self, theta, ncomp, plain=False):
         theta[..., self.p_ix, :] = self.value
         return theta
+
+
+class OrderedPrior(Prior):
+    """Strict left-to-right ordering by nested rescaling of the unit
+    interval."""
+
+    def apply(self, theta, ncomp, plain=False):
+        u = theta[..., self.p_ix, :].clone()
+        umin = torch.zeros_like(u[..., 0])
+        for i in range(ncomp):
+            umin = umin + (1.0 - umin) * u[..., i]
+            theta[..., self.p_ix, i] = ppf_interp(self.dist, umin, plain)
+        return theta
+
+
+class SpacedPrior(Prior):
+    """The first draw from an independent prior; each later draw is a
+    positive offset from the running value."""
+
+    def __init__(self, prior_indep: Prior, prior_depen: Prior):
+        self.prior_indep = prior_indep
+        self.prior_depen = prior_depen
+        self.p_ix = prior_indep.p_ix
+        self.dist = prior_indep.dist
+
+    def to(self, device):
+        self.prior_indep.to(device)
+        self.prior_depen.to(device)
+        self.dist = self.prior_indep.dist
+        return self
+
+    def apply(self, theta, ncomp, plain=False):
+        ix = self.p_ix
+        u = theta[..., ix, :].clone()
+        v = ppf_interp(self.prior_indep.dist, u[..., 0], plain)
+        theta[..., ix, 0] = v
+        for i in range(1, ncomp):
+            v = v + ppf_interp(self.prior_depen.dist, u[..., i], plain)
+            theta[..., ix, i] = v
+        return theta
+
+
+class CenSepPrior(Prior):
+    """Centre +- separation/2 for two components."""
+
+    def __init__(self, vcen_prior: Prior, vsep_prior: Prior):
+        self.vcen_prior = vcen_prior
+        self.vsep_prior = vsep_prior
+        self.p_ix = vcen_prior.p_ix
+        self.dist = vcen_prior.dist
+
+    def to(self, device):
+        self.vcen_prior.to(device)
+        self.vsep_prior.to(device)
+        self.dist = self.vcen_prior.dist
+        return self
+
+    def min_sep(self, theta):
+        """Floor of the separation (none here)."""
+        return None
+
+    def apply(self, theta, ncomp, plain=False):
+        if ncomp > 2:
+            raise NotImplementedError(
+                f"{type(self).__name__} supports ncomp <= 2")
+        ix = self.p_ix
+        u = theta[..., ix, :].clone()
+        vcen = ppf_interp(self.vcen_prior.dist, u[..., 0], plain)
+        if ncomp == 1:
+            theta[..., ix, 0] = vcen
+            return theta
+        vsep = ppf_interp(self.vsep_prior.dist, u[..., 1], plain)
+        floor = self.min_sep(theta)
+        if floor is not None:
+            vsep = torch.maximum(vsep, floor)
+        theta[..., ix, 0] = vcen - 0.5 * vsep
+        theta[..., ix, 1] = vcen + 0.5 * vsep
+        return theta
+
+
+class ResolvedCenSepPrior(CenSepPrior):
+    """Centre/separation with the separation floored at ``scale`` times
+    the FWHM of the components' geometric-mean width, so the two stay
+    spectrally resolved."""
+
+    n_param = 2
+
+    def __init__(self, vcen_prior, vsep_prior, sigm_prior, scale=1.5):
+        super().__init__(vcen_prior, vsep_prior)
+        self.sigm_prior = sigm_prior
+        self.scale = float(scale)
+        self.sep_scale = FWHM * float(scale)
+
+    def to(self, device):
+        self.sigm_prior.to(device)
+        return super().to(device)
+
+    def min_sep(self, theta):
+        sig = theta[..., self.sigm_prior.p_ix, :]
+        return self.sep_scale * torch.sqrt(sig[..., 0] * sig[..., 1])
+
+    def apply(self, theta, ncomp, plain=False):
+        if ncomp > 2:
+            raise NotImplementedError(
+                f"{type(self).__name__} supports ncomp <= 2")
+        theta = self.sigm_prior.apply(theta, ncomp, plain)
+        return super().apply(theta, ncomp, plain)
 
 
 class ResolvedPlacementPrior(Prior):

@@ -12,10 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from nestfit_tpu_torch.models import ammonia
-from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS
+from nestfit_tpu_torch.constants import CKMS
+from nestfit_tpu_torch.models import ammonia, diazenylium
+from nestfit_tpu_torch.models.tables import (
+    AMMONIA_TRANSITIONS,
+    DIAZENYLIUM_TRANSITIONS,
+)
 from nestfit_tpu_torch.ops import fused, tables
-from nestfit_tpu_torch.priors import get_irdc_priors, make_distribution
+from nestfit_tpu_torch.priors import (
+    get_diazenylium_priors,
+    get_gaussian_priors,
+    get_irdc_priors,
+    make_distribution,
+)
 from nestfit_tpu_torch.utils import freq_axis_from_velocity
 
 
@@ -87,3 +96,71 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                              device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         tables.table_lerp(d.ppf, torch.zeros(8, 2, device="cuda")[:, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trans_id", [2, 3])
+def test_hf_chi2_kernel_on_n2hp_lines_matches_plain(trans_id):
+    """N2H+ (2-1) and (3-2): 40 and 45 hyperfine lines."""
+    _card()
+    R, T, ncomp = 64, 5, 2
+    rng = np.random.default_rng(4)
+    xarr = freq_axis_from_velocity(np.arange(-20, 20, 0.1),
+                                   DIAZENYLIUM_TRANSITIONS[trans_id - 1].nu)
+    spec = diazenylium.make_diazenylium_spectrum(
+        xarr, rng.normal(scale=0.1, size=(R, xarr.shape[0])), 0.1,
+        trans_id=trans_id)
+    u = torch.as_tensor(rng.uniform(size=(T * R, 4 * ncomp)),
+                        dtype=torch.float32, device="cuda")
+    theta = get_diazenylium_priors().transform(u, ncomp, plain=True)
+    trans, voff, tex, tau0, sigm = diazenylium._component_params(spec, theta)
+    assert trans.nhf > 32
+    args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data,
+            *(x.contiguous() for x in (voff, tex, tau0, sigm)))
+    got = fused.hf_chi2_fused(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused.hf_chi2_plain(*args),
+                               rtol=2e-4, atol=1e-3)
+
+
+def _gauss_args(ncomp, R=64, T=5, seed=6):
+    rng = np.random.default_rng(seed)
+    rest = AMMONIA_TRANSITIONS[0].nu
+    dnu = torch.as_tensor(
+        freq_axis_from_velocity(np.arange(-30, 30, 0.158), rest) - rest,
+        dtype=torch.float32, device="cuda")
+    data = torch.as_tensor(rng.normal(scale=0.15, size=(R, dnu.shape[0])),
+                           dtype=torch.float32, device="cuda")
+    u = torch.as_tensor(rng.uniform(size=(T * R, 3 * ncomp)),
+                        dtype=torch.float32, device="cuda")
+    theta = get_gaussian_priors().transform(u, ncomp, plain=True)
+    voff, sigm, peak = (theta[:, i * ncomp:(i + 1) * ncomp].contiguous()
+                        for i in range(3))
+    return rest / CKMS, dnu, data, voff, sigm, peak
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ncomp", [1, 2, 3])
+def test_gauss_chi2_kernel_matches_plain(ncomp):
+    _card()
+    args = _gauss_args(ncomp)
+    n0 = fused.gauss_chi2_fused.launches
+    got = fused.gauss_chi2_fused(*args)
+    torch.cuda.synchronize()
+    assert fused.gauss_chi2_fused.launches == n0 + 1
+    torch.testing.assert_close(got, fused.gauss_chi2_plain(*args),
+                               rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_gauss_chi2_wrapper_rejects_what_the_kernel_does_not_take():
+    _card()
+    fc, dnu, data, voff, sigm, peak = _gauss_args(2)
+    n0 = fused.gauss_chi2_fused.launches
+    with pytest.raises(ValueError, match="float32"):
+        fused.gauss_chi2_fused(fc, dnu, data, voff.double(), sigm, peak)
+    wide = torch.stack([sigm, sigm], dim=-1)[..., 0]     # strided view
+    assert not wide.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.gauss_chi2_fused(fc, dnu, data, voff, wide, peak)
+    assert fused.gauss_chi2_fused.launches == n0

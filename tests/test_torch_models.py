@@ -67,7 +67,7 @@ def test_amm_predict_matches_jax(ncomp, trans_id):
         {f.name: (np.asarray(getattr(js, f.name))
                   if f.name in ("dnu", "data", "noise", "t0", "tbg")
                   else getattr(js, f.name))
-         for f in dataclasses.fields(js)})
+         for f in dataclasses.fields(js)}, device="cpu")
     for f in ("dnu", "data", "noise", "t0", "tbg"):
         assert torch.equal(getattr(cs, f), getattr(ts, f))
     p = _params((16,), ncomp, seed=10 + ncomp)

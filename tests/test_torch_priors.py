@@ -1,6 +1,6 @@
 """Port parity: prior tables, kernels K2 (``table_lerp``) and K3
-(``tapered_invert``), and the IRDC prior transform, against the JAX
-package on the same inputs.
+(``tapered_invert``), every prior class and every prior constructor,
+against the JAX package on the same inputs.
 
 JAX runs its Pallas table kernels in interpret mode and, for the
 references, its gather path (``USE_PALLAS_TABLES=False``), as its own
@@ -14,11 +14,13 @@ import torch
 
 import jax.numpy as jnp
 
+from nestfit_tpu import priors as jax_pr
 from nestfit_tpu.ops import tables as jax_tables
 from nestfit_tpu.priors import distributions as jax_dists
 from nestfit_tpu.priors import get_irdc_priors as jax_priors
 
 from nestfit_tpu_torch import convert
+from nestfit_tpu_torch import priors as pr
 from nestfit_tpu_torch.ops import tables
 from nestfit_tpu_torch.priors import (
     get_irdc_priors,
@@ -58,7 +60,8 @@ def test_make_distribution_matches_jax():
     # the same tables carried across through convert.py
     cd = convert.distribution_from_dict(
         {f: np.asarray(getattr(jd, f)) for f in TABLES}
-        | {f: getattr(jd, f) for f in ("size", "dx", "du", "xmin", "xmax")})
+        | {f: getattr(jd, f) for f in ("size", "dx", "du", "xmin", "xmax")},
+        device="cpu")
     for f in TABLES:
         assert torch.equal(getattr(cd, f), getattr(td, f))
 
@@ -111,9 +114,89 @@ def test_irdc_transform_matches_jax(ncomp):
     assert pt.flat_dims(ncomp) == jax_priors().flat_dims(ncomp)
 
 
+def _prior_pair(kind):
+    """The same prior built in both packages over three grids: a centred
+    Gaussian bump, positive offsets and widths."""
+    x_sep = np.linspace(0.1, 2.6, 300)
+    x_sig = np.linspace(0.05, 2.0, 300)
+    grids = [_grid(), (x_sep, np.ones_like(x_sep)), (x_sig, np.exp(-x_sig))]
+
+    def build(m, mk):
+        d = [mk(x, f) for x, f in grids]
+        return {
+            "duplicate": lambda: [m.DuplicatePrior(d[0], 0, 1)],
+            "ordered": lambda: [m.OrderedPrior(d[0], 0), m.Prior(d[2], 1)],
+            "spaced": lambda: [m.SpacedPrior(m.Prior(d[0], 0),
+                                             m.Prior(d[1], 0)),
+                               m.Prior(d[2], 1)],
+            "censep": lambda: [m.CenSepPrior(m.Prior(d[0], 0),
+                                             m.Prior(d[1], 0)),
+                               m.Prior(d[2], 1)],
+            "resolved_censep": lambda: [m.ResolvedCenSepPrior(
+                m.Prior(d[0], 0), m.Prior(d[1], 0), m.Prior(d[2], 1),
+                scale=1.2)],
+        }[kind]()
+
+    return (jax_pr.PriorTransformer(build(jax_pr, lambda x, f:
+                                          jax_dists.make_distribution(
+                                              x, f, dtype=jnp.float32))),
+            pr.PriorTransformer(build(pr, lambda x, f: make_distribution(
+                x, f, device="cpu"))))
+
+
+PRIOR_KINDS = ["duplicate", "ordered", "spaced", "censep", "resolved_censep"]
+
+
+@pytest.mark.parametrize("ncomp", [1, 2])
+@pytest.mark.parametrize("kind", PRIOR_KINDS)
+def test_prior_class_matches_jax(kind, ncomp):
+    jt, tt = _prior_pair(kind)
+    assert tt.n_param == jt.n_param == 2
+    u = np.random.default_rng(13).uniform(size=(4, 8, 2 * ncomp)).astype(
+        np.float32)
+    want = np.asarray(jt.transform(jnp.asarray(u), ncomp))
+    ut = torch.as_tensor(u)
+    got = tt.transform(ut, ncomp).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(ut, torch.as_tensor(u))     # the input is not written
+    np.testing.assert_array_equal(tt.transform(ut, ncomp, plain=True), got)
+    assert tt.flat_dims(ncomp) == jt.flat_dims(ncomp)
+    assert tt.to("cpu") is tt
+
+
+@pytest.mark.parametrize("kind", ["censep", "resolved_censep"])
+def test_censep_priors_refuse_three_components(kind):
+    _, tt = _prior_pair(kind)
+    with pytest.raises(NotImplementedError, match="ncomp <= 2"):
+        tt.transform(torch.full((2, 6), 0.5), 3)
+
+
+@pytest.mark.parametrize("ncomp", [1, 2])
+@pytest.mark.parametrize("name,n_param", [
+    ("get_synth_priors", 6),
+    ("get_gaussian_priors", 3),
+    ("get_diazenylium_priors", 4),
+])
+def test_constructor_transform_matches_jax(name, n_param, ncomp):
+    jt = getattr(jax_pr, name)()
+    tt = getattr(pr, name)(device="cpu")
+    assert tt.n_param == jt.n_param == n_param
+    u = np.random.default_rng(17).uniform(
+        size=(3, 16, n_param * ncomp)).astype(np.float32)
+    np.testing.assert_allclose(tt.transform(torch.as_tensor(u), ncomp),
+                               np.asarray(jt.transform(jnp.asarray(u),
+                                                       ncomp)),
+                               rtol=2e-5, atol=2e-5)
+    assert tt.flat_dims(ncomp) == jt.flat_dims(ncomp)
+
+
 def test_default_device_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
+    for ctor in (get_irdc_priors, pr.get_synth_priors,
+                 pr.get_gaussian_priors, pr.get_diazenylium_priors):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ctor()
     with pytest.raises(RuntimeError, match="cuda"):
-        get_irdc_priors()
+        convert.distribution_from_dict({})
 

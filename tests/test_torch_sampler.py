@@ -105,7 +105,8 @@ def test_finalize_and_posterior_products_match_jax():
         {f.name: np.asarray(getattr(jr, f.name))
          for f in dataclasses.fields(jr)
          if f.name not in ("nlive", "ndim", "max_iter")}
-        | {"nlive": jr.nlive, "ndim": jr.ndim, "max_iter": jr.max_iter})
+        | {"nlive": jr.nlive, "ndim": jr.ndim, "max_iter": jr.max_iter},
+        device="cpu")
     jp = jres.posterior_products(jr, lambda u: 4.0 * u - 1.0, random.key(0),
                                  n_post=64)
     tp = tres.posterior_products(cr, lambda u: 4.0 * u - 1.0,
