@@ -5,15 +5,19 @@ Phases, in order; any failure exits non-zero:
 
 1. device   -- require CUDA; print the card's name and power limit.
 2. build    -- compile the four Hopper kernels from ``nestfit_tpu_torch/
-               csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3, and N2H+ (1-0) and (3-2):
-               15 and 45 lines), K2 ``table_lerp``, K3 ``tapered_invert``
+               csrc`` (one ``nvcc`` per source, in parallel); print their
+               registers and spills, and the instruction mix of K1's
+               line loop (``cuobjdump -sass``).
+3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3 at B = 51,200 and at the
+               compacted B = 3,200, and N2H+ (1-0) and (3-2): 15 and 45
+               lines), K2 ``table_lerp``, K3 ``tapered_invert``
                and K4 ``gauss_chi2_fused`` against their plain PyTorch
                versions on the same CUDA tensors at main-path shapes, and
                time them (kernel, plain version, library call): device
                time per call from ``torch.profiler``, and per-call time
                with CUDA events, which also counts host gaps between
-               launches.
+               launches.  ``--k1-baseline SOURCE`` also builds another
+               K1 source and times the two in turns at both widths.
 4. forward  -- ``loglike_unit`` at 256 px, ncomp 2, kernel path against
                plain path on the card: NH3 (1,1)+(2,2) at 384 ch, the
                Gaussian model at 380 ch, N2H+ (1-0)+(3-2) at 400 ch.
@@ -42,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -52,6 +57,7 @@ SFU_EXP_PER_CLOCK_PER_SM = 16
 
 LADDER = dict(nlive=100, tol=1.0, init_factor=4)
 GAUSS_NOISE, N2HP_NOISE = 0.15, 0.1
+K1_COMPACT_ROWS = 64     # NSConfig.min_compact: the narrowest K1 launch
 
 
 def fail(msg):
@@ -186,9 +192,97 @@ def check_close(label, got, want, atol, rtol=2e-4):
     return err.max().item()
 
 
-def phase_kernels(seed, n_sm, clock_hz):
+def k1_bound(B, C, R, S, nhf, n_sm, clock_hz):
+    """``(bound_ms, bound_by, n_exp)`` of one K1 launch: C S (nhf + 2)
+    exponentials a row at the SFU's rate, against the bytes in and out."""
+    n_exp = B * C * S * (nhf + 2)
+    t_exp = n_exp / (SFU_EXP_PER_CLOCK_PER_SM * n_sm * clock_hz)
+    t_fma = B * C * S * nhf * 8 * 2 / FP32_FLOP_PER_S
+    n_bytes = 4 * (4 * B * C + R * S + 3 * S + 3 * nhf + B)
+    t_mem = n_bytes / HBM_BYTES_PER_S
+    t_ops = max(t_exp, t_fma)
+    return (max(t_ops, t_mem) * 1e3,
+            "operations" if t_ops >= t_mem else "bytes", n_exp)
+
+
+def k1_sass_line_loop(lib, k):
+    """Instruction counts of K1's kernel whose lanes own ``k`` channels,
+    from its SASS (``cuobjdump -sass``): ``(line, rest)``, where ``line``
+    is ``{opcode: count}`` over the line loop (the loop densest in
+    ``MUFU.EX2``) and ``rest`` the instructions of the enclosing
+    component loop outside it (the per-channel terms of ``k`` channels,
+    and the odd line of an unrolled line loop)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if f"hf_chi2_kernelILi{k}E" in f.split("\n", 1)[0])
+    ops, index, loops = [], {}, []
+    for line in body.splitlines():
+        # "/*0a30*/  @P0 BRA 0x8c0 ;": address, predicate, opcode, operands
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][\w.]*)([^;]*)", line)
+        if not m:
+            continue
+        index[int(m.group(1), 16)] = len(ops)
+        ops.append(m.group(2))
+        tgt = re.match(r"\s*0x([0-9a-f]+)", m.group(3))
+        if ops[-1] == "BRA" and tgt and int(tgt.group(1), 16) in index:
+            loops.append((index[int(tgt.group(1), 16)], len(ops)))  # backward
+    a, b = max(loops, key=lambda lp: ops[lp[0]:lp[1]].count("MUFU.EX2")
+               / (lp[1] - lp[0]))
+    outer = min((lp for lp in loops if lp[0] <= a and b <= lp[1]
+                 and lp != (a, b)), key=lambda lp: lp[1] - lp[0])
+    loop = ops[a:b]
+    return ({op: loop.count(op) for op in set(loop)},
+            outer[1] - outer[0] - (b - a))
+
+
+def compare_k1(source, timing):
+    """Build another K1 source (the same C interface and flags), hold it
+    against the plain version, and time it and the package's kernel in
+    turns (package, other, other, package) at each width of ``timing``."""
+    import ctypes
+    import torch
+    from nestfit_tpu_torch.ops import _build, fused
+
+    lib = _build.BUILD_DIR / f"k1_compare_{Path(source).stem}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    source], check=True, capture_output=True, text=True,
+                   timeout=600)
+    fn = ctypes.CDLL(str(lib)).hf_chi2_launch
+    fn.restype, fn.argtypes = ctypes.c_int, fused._ARGTYPES
+
+    def other(trans, dnu, t0, tbg, data, voff, tex, tau0, sigm):
+        (B, C), (R, S) = voff.shape, data.shape
+        out = torch.empty((B,), dtype=torch.float32, device="cuda")
+        lines = fused.line_table(trans, voff.device)
+        _build.check(fn(*(x.data_ptr() for x in (
+            voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out)),
+            B, C, R, S, trans.nhf, voff.device.index,
+            torch.cuda.current_stream().cuda_stream), source)
+        return out
+
+    for args in timing.values():
+        B = args[5].shape[0]
+        check_close(f"K1 {source} B={B}", other(*args),
+                    fused.hf_chi2_plain(*args), atol=1e-3)
+        times = [time_ms(lambda: f(*args), 20)[0] for f in (
+            fused.hf_chi2_fused, other, other, fused.hf_chi2_fused)]
+        print(f"K1 in turns B={B}: this kernel {times[0]:.4f}, "
+              f"{times[3]:.4f} ms; {source} {times[1]:.4f}, {times[2]:.4f} "
+              f"ms; ratio {(times[1] + times[2]) / (times[0] + times[3]):.3f}",
+              flush=True)
+
+
+def phase_kernels(seed, n_sm, clock_hz, k1_baseline=None):
     """Hold each kernel against its plain version; returns the kernel
-    records of the JSON line (without their launch counts)."""
+    records of the JSON line (without their launch counts).
+    ``k1_baseline``, a path to another K1 source, adds
+    :func:`compare_k1`."""
     import torch
     from nestfit_tpu_torch.models import ammonia
     from nestfit_tpu_torch.ops import fused, tables
@@ -199,11 +293,13 @@ def phase_kernels(seed, n_sm, clock_hz):
     records = {}
     utrans = get_irdc_priors(device="cuda")
 
-    # ---- K1 at the D=12 candidate round: T = n_cand = 50, R = 1024
+    # ---- K1 at the D=12 candidate round (T = n_cand = 50, R = 1024) and
+    # at the compacted slice round (T = 50, R_active = min_compact = 64:
+    # the first 64 pixels)
     R, T, S = 1024, 50, 380
     (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
         n_pix=R, noise=0.15, rng=np.random.default_rng(seed))
-    worst, timing = 0.0, None
+    worst, timing = 0.0, {}
     for ncomp in (1, 2):
         runner = make_runner((xa11, xa22), (d11, d22), 0.15, ncomp, utrans)
         u = torch.as_tensor(rng.uniform(size=(T, R, 6 * ncomp)),
@@ -212,36 +308,39 @@ def phase_kernels(seed, n_sm, clock_hz):
         for spec in runner.spectra:
             trans, voff, tex, tau0, sigm = ammonia._component_params(
                 spec, flat, False, False)
-            args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data,
-                    *(x.contiguous() for x in (voff, tex, tau0, sigm)))
-            worst = max(worst, check_close(
-                f"K1 hf_chi2_fused ncomp={ncomp} trans={spec.trans_id} "
-                f"B={T * R}", fused.hf_chi2_fused(*args),
-                fused.hf_chi2_plain(*args), atol=1e-3))
-            if ncomp == 2 and spec.trans_id == 1:
-                timing = args
-    B, C, nhf = T * R, 2, timing[0].nhf
-    ms, call = time_ms(lambda: fused.hf_chi2_fused(*timing), 20)
-    plain_ms, _ = time_ms(lambda: fused.hf_chi2_plain(*timing), 3, warmup=1)
-    n_exp = B * C * S * (nhf + 2)
-    t_exp = n_exp / (SFU_EXP_PER_CLOCK_PER_SM * n_sm * clock_hz)
-    t_fma = B * C * S * nhf * 8 * 2 / FP32_FLOP_PER_S
-    n_bytes = 4 * (4 * B * C + R * S + 3 * S + 3 * nhf + B)
-    t_mem = n_bytes / HBM_BYTES_PER_S
-    t_ops = max(t_exp, t_fma)
-    records["hf_chi2_fused"] = dict(
-        name="hf_chi2_fused", route="cuda",
-        source="nestfit_tpu_torch/csrc/hf_chi2.cu",
-        replaces="nestfit_tpu/ops/fused.py:159",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_ops, t_mem) * 1e3,
-        bound_by="operations" if t_ops >= t_mem else "bytes",
-        library_ms=None)
-    print(f"K1 timing (ncomp=2, (1,1), B={B}): kernel {ms:.4f} ms "
-          f"(per call {call:.4f} ms), plain "
-          f"{plain_ms:.3f} ms, bound "
-          f"{records['hf_chi2_fused']['bound_ms']:.4f} ms ({n_exp:.3e} exp "
-          f"at {clock_hz / 1e6:.0f} MHz)", flush=True)
+            comps = [x.contiguous() for x in (voff, tex, tau0, sigm)]
+            for rows in (R, K1_COMPACT_ROWS):
+                args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data[:rows],
+                        *(x.reshape(T, R, ncomp)[:, :rows].reshape(
+                            T * rows, ncomp).contiguous() for x in comps))
+                worst = max(worst, check_close(
+                    f"K1 hf_chi2_fused ncomp={ncomp} trans={spec.trans_id} "
+                    f"B={T * rows}", fused.hf_chi2_fused(*args),
+                    fused.hf_chi2_plain(*args), atol=1e-3))
+                if ncomp == 2 and spec.trans_id == 1:
+                    timing[rows] = args
+    rec = dict(name="hf_chi2_fused", route="cuda",
+               source="nestfit_tpu_torch/csrc/hf_chi2.cu",
+               replaces="nestfit_tpu/ops/fused.py:159", max_abs_err=worst,
+               library_ms=None)
+    for rows, suffix in ((R, ""), (K1_COMPACT_ROWS, "_compacted")):
+        args = timing[rows]
+        ms, call = time_ms(lambda: fused.hf_chi2_fused(*args), 20)
+        plain_ms, _ = time_ms(lambda: fused.hf_chi2_plain(*args), 3,
+                              warmup=1)
+        bound_ms, bound_by, n_exp = k1_bound(T * rows, 2, rows, S,
+                                             args[0].nhf, n_sm, clock_hz)
+        rec.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"bound_ms{suffix}": bound_ms})
+        if not suffix:
+            rec["bound_by"] = bound_by
+        print(f"K1 timing (ncomp=2, (1,1), B={T * rows}): kernel {ms:.4f} ms "
+              f"(per call {call:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({n_exp:.3e} exp at {clock_hz / 1e6:.0f} "
+              f"MHz, {bound_by})", flush=True)
+    records["hf_chi2_fused"] = rec
+    if k1_baseline:
+        compare_k1(k1_baseline, timing)
 
     # ---- K2: the trot PPF (N = 500) at ~1e6 positions, plus endpoints
     dist = utrans.priors[1].dist
@@ -599,6 +698,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, choices=(1, 2),
                     help="also profile the rung of this ncomp")
+    ap.add_argument("--k1-baseline", metavar="SOURCE",
+                    help="another hf_chi2 CUDA source to time against K1 "
+                         "in turns")
     args = ap.parse_args()
 
     import torch
@@ -625,8 +727,21 @@ def main():
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}", flush=True)
+    for k in (12, 13):     # S = 380 (NH3) and S = 400 (N2H+)
+        try:
+            mix, rest = k1_sass_line_loop(_build._lib_path(fused.SOURCE), k)
+        except (OSError, ValueError, StopIteration,
+                subprocess.SubprocessError) as exc:
+            print(f"K1 SASS (K={k}): not read ({exc!r})", flush=True)
+            continue
+        n_ex2 = mix.get("MUFU.EX2", 0)
+        print(f"K1 SASS (K={k}): line loop {sum(mix.values())} "
+              f"instructions, {n_ex2} MUFU.EX2, "
+              f"{sum(mix.values()) / max(n_ex2, 1):.2f} per exponential "
+              f"{json.dumps(dict(sorted(mix.items())))}; component loop "
+              f"outside it {rest} ({rest / k:.1f} per channel)", flush=True)
 
-    records = phase_kernels(args.seed, n_sm, clock_hz)
+    records = phase_kernels(args.seed, n_sm, clock_hz, args.k1_baseline)
     phase_forward(args.seed)
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
                 "table_lerp": tables.table_lerp,

@@ -1,4 +1,4 @@
-// Fused hyperfine spectrum synthesis + chi-square for one NH3 transition.
+// Fused hyperfine spectrum synthesis + chi-square for one transition.
 //
 // Replaces the TPU kernel nestfit_tpu/ops/fused.py::hf_chi2_fused
 // (pallas_call at fused.py:159).  For each flat row b (proposal t, pixel
@@ -11,91 +11,130 @@
 // exp(x)-1, no clamping of sigm/tex, line centres relative to the rest
 // frequency.
 //
-// Bound on the H100: arithmetic.  A row costs C*S*(nhf+2) exponentials
+// Bound on the H100: the SFU.  A row costs C*S*(nhf+2) exponentials
 // (2*380*20 = 15,200 at C=2 on the (1,1) line) against 4 bytes of
 // parameters per component and 4 bytes out, so the SFU's exponential
-// rate (16 per clock per SM) sets the floor, not memory.  Design: one
-// warp per row, channels across the lanes (~12 per lane at S=380).  The
-// warp first computes its row's per-line centre, 1/(2 hw^2) and
-// amplitude into shared memory (C*nhf entries, all lanes then read the
-// same address: a broadcast), so the inner loop is one subtract, two
-// multiplies, one exponential and one FMA per line and channel.  The
-// data row is read from global memory; it is reused across the T
-// proposals of a launch through L2.  The squared residual is reduced
-// with warp shuffles; nothing but chi2 leaves the SM.
+// rate (16 per clock per SM) sets the floor, not memory.
+//
+// Design: one warp per row, kRowsPerBlock rows per block.  The warp first
+// folds its row's per-line terms into a shared table, one float4 per
+// (component, line): {centre, -log2(e) / (2 hw^2), amplitude}.  Each lane
+// owns K channels lane + 32k of a chunk of at most 32 * kMaxChanPerLane
+// channels (one chunk up to 512; longer spectra run in chunks of equal
+// width) and keeps their dnu, one component's K opacity accumulators and
+// the K predictions in registers.  The line loop is outermost: one
+// broadcast shared load per line feeds K channels, each
+//   d = x - cen;  tau += amp * ex2(d * d * k)
+// that is one subtract, two multiplies, one MUFU.EX2 and one FMA, so the
+// SFU and not instruction issue limits the loop (5.2 instructions per
+// exponential in the SASS, unrolled by 4 lines).  The subtraction comes
+// before the square: expanding (x s - m)^2 cancels at |x / hw| ~ 100.
+// ex2.approx.ftz flushes results below 2^-126 to zero; such terms are
+// below 1e-38 of tau.  The per-channel terms keep expm1f: they are 2 of
+// every nhf + 2 exponentials, and 1 - exp(-tau) loses digits at small
+// tau.  They cost ~75 instructions per component and channel, about as
+// much issue as an 18-line loop, and run after the SFU-bound line loop
+// rather than beside it: that phase, not the SFU, holds the kernel above
+// its bound.  A lane's channels past S load finite stand-ins and are
+// left out of the residual.  The data row is read from global memory
+// (the T proposals of a launch share it through L2); the squared
+// residual is reduced with warp shuffles.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxComp = 8;
-// N2H+ (3-2) has 45 lines.  The three per-row tables below take
-// 3 * kRowsPerBlock * C * kMaxLines * 4 B: 36,864 B at C = 8, inside the
-// 48 KB of static shared memory a block may hold.
-constexpr int kMaxLines = 48;
-constexpr int kRowsPerBlock = 8;   // one warp per row
+constexpr int kRowsPerBlock = 2;    // one warp per row
+constexpr int kMaxChanPerLane = 16;
+// The per-row tables take kRowsPerBlock * C * nhf * 16 B of dynamic
+// shared memory: 49,152 B at C = 8 and 192 lines, the most a launch may
+// ask for without opting in.  N2H+ (3-2) has 45 lines.
+constexpr int kMaxLines = 192;
+constexpr float kNegHalfLog2e = -0.72134752044448170f;   // -log2(e) / 2
 
-template <int C>
-__global__ void hf_chi2_kernel(const float* __restrict__ voff,
-                               const float* __restrict__ tex,
-                               const float* __restrict__ tau0,
-                               const float* __restrict__ sigm,
-                               const float* __restrict__ data,
-                               const float* __restrict__ dnu,
-                               const float* __restrict__ t0,
-                               const float* __restrict__ tbg,
-                               const float* __restrict__ lines,
-                               float* __restrict__ out,
-                               int B, int R, int S, int nhf) {
-  __shared__ float s_cen[kRowsPerBlock][C * kMaxLines];
-  __shared__ float s_idn[kRowsPerBlock][C * kMaxLines];
-  __shared__ float s_amp[kRowsPerBlock][C * kMaxLines];
+__device__ __forceinline__ float ex2_approx_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 14 blocks of 64 threads per SM (72 registers a thread) hold a
+// compacted launch (B = 3,200: 1,600 blocks) in one wave on 132 SMs.
+template <int K>
+__global__ void __launch_bounds__(32 * kRowsPerBlock, 14)
+hf_chi2_kernel(const float* __restrict__ voff, const float* __restrict__ tex,
+               const float* __restrict__ tau0,
+               const float* __restrict__ sigm,
+               const float* __restrict__ data,
+               const float* __restrict__ dnu, const float* __restrict__ t0,
+               const float* __restrict__ tbg,
+               const float* __restrict__ lines, float* __restrict__ out,
+               int B, int C, int R, int S, int nhf) {
+  extern __shared__ float4 s_tab[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kRowsPerBlock + warp;
   if (b >= B) return;   // whole warps exit together
 
-  // per-line tables of this row: lines = [f_j | rb_j | w_j], f_j =
+  // this row's line terms; lines = [f_j | rb_j | w_j], f_j =
   // hf_freq_j / c and rb_j = nu * voff_j / c (float64 on the host)
-  const int K = C * nhf;
-  for (int k = lane; k < K; k += 32) {
+  const int L = C * nhf;
+  float4* tab = s_tab + warp * L;
+  for (int k = lane; k < L; k += 32) {
     const int c = k / nhf;
     const int j = k - c * nhf;
     const float f = lines[j];
-    const float rb = lines[nhf + j];
-    const float w = lines[2 * nhf + j];
     const float hw = sigm[b * C + c] * f;
-    s_cen[warp][k] = -rb - voff[b * C + c] * f;
-    s_idn[warp][k] = 0.5f / (hw * hw);
-    s_amp[warp][k] = tau0[b * C + c] * w;
+    tab[k] = make_float4(-lines[nhf + j] - voff[b * C + c] * f,
+                         kNegHalfLog2e / (hw * hw),
+                         tau0[b * C + c] * lines[2 * nhf + j], 0.0f);
   }
-  float tex_r[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) tex_r[c] = tex[b * C + c];
   __syncwarp();
 
   const float* drow = data + static_cast<size_t>(b % R) * S;
   float acc = 0.0f;
-  for (int s = lane; s < S; s += 32) {
-    const float x = dnu[s];
-    const float t0s = t0[s];
-    const float tbgs = tbg[s];
-    float pred = 0.0f;
+  for (int base = lane; base < S; base += 32 * K) {
+    // channel base + 32k of this lane; past S the loads give finite
+    // stand-ins (dnu 0, T0 1, Tbg 0) and the residual skips them
+    float x[K], pred[K];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float* cen = &s_cen[warp][c * nhf];
-      const float* idn = &s_idn[warp][c * nhf];
-      const float* amp = &s_amp[warp][c * nhf];
-      float tau = 0.0f;
-      for (int j = 0; j < nhf; ++j) {
-        const float d = x - cen[j];
-        tau += amp[j] * expf(-(d * d) * idn[j]);
-      }
-      const float iem = 1.0f / expm1f(t0s / tex_r[c]);
-      pred += t0s * (iem - tbgs) * (-expm1f(-tau));
+    for (int k = 0; k < K; ++k) {
+      x[k] = base + 32 * k < S ? dnu[base + 32 * k] : 0.0f;
+      pred[k] = 0.0f;
     }
-    const float dev = drow[s] - pred;
-    acc += dev * dev;
+    for (int c = 0; c < C; ++c) {
+      const float4* t = tab + c * nhf;
+      float tau[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) tau[k] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < nhf; ++j) {
+        const float4 e = t[j];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float d = x[k] - e.x;
+          tau[k] = fmaf(e.z, ex2_approx_ftz(d * d * e.y), tau[k]);
+        }
+      }
+      const float rtex = 1.0f / tex[b * C + c];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const bool in = base + 32 * k < S;
+        const float t0s = in ? t0[base + 32 * k] : 1.0f;
+        const float tbgs = in ? tbg[base + 32 * k] : 0.0f;
+        // T0/Tex > 0 keeps expm1 in the normal range of the fast divide
+        const float iem = __fdividef(1.0f, expm1f(t0s * rtex));
+        pred[k] += t0s * (iem - tbgs) * (-expm1f(-tau[k]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (base + 32 * k < S) {
+        const float dev = drow[base + 32 * k] - pred[k];
+        acc += dev * dev;
+      }
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -103,15 +142,19 @@ __global__ void hf_chi2_kernel(const float* __restrict__ voff,
   if (lane == 0) out[b] = acc;
 }
 
-template <int C>
-void launch(const float* voff, const float* tex, const float* tau0,
-            const float* sigm, const float* data, const float* dnu,
-            const float* t0, const float* tbg, const float* lines,
-            float* out, int B, int R, int S, int nhf, cudaStream_t stream) {
-  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  hf_chi2_kernel<C><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf);
-}
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, const float*,
+                        const float*, const float*, const float*, float*,
+                        int, int, int, int, int);
+
+// kKernels[K - 1] is the kernel whose lanes own K channels of a chunk
+const Kernel kKernels[kMaxChanPerLane] = {
+    hf_chi2_kernel<1>,  hf_chi2_kernel<2>,  hf_chi2_kernel<3>,
+    hf_chi2_kernel<4>,  hf_chi2_kernel<5>,  hf_chi2_kernel<6>,
+    hf_chi2_kernel<7>,  hf_chi2_kernel<8>,  hf_chi2_kernel<9>,
+    hf_chi2_kernel<10>, hf_chi2_kernel<11>, hf_chi2_kernel<12>,
+    hf_chi2_kernel<13>, hf_chi2_kernel<14>, hf_chi2_kernel<15>,
+    hf_chi2_kernel<16>};
 
 }  // namespace
 
@@ -132,16 +175,14 @@ extern "C" int hf_chi2_launch(const float* voff, const float* tex,
   if (C < 1 || C > kMaxComp || nhf < 1 || nhf > kMaxLines || R < 1 ||
       S < 1 || B % R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: launch<1>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 2: launch<2>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 3: launch<3>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 4: launch<4>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 5: launch<5>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 6: launch<6>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 7: launch<7>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-    case 8: launch<8>(voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, R, S, nhf, st); break;
-  }
+  // the fewest chunks of at most 32 * kMaxChanPerLane channels, then the
+  // narrowest K that covers S with them
+  const int chunks = (S + 32 * kMaxChanPerLane - 1) / (32 * kMaxChanPerLane);
+  const int K = (S + 32 * chunks - 1) / (32 * chunks);
+  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
+  const size_t smem = sizeof(float4) * kRowsPerBlock * C * nhf;
+  kKernels[K - 1]<<<blocks, 32 * kRowsPerBlock, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, C, R, S, nhf);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,8 @@ optical depth), sigm [km/s].  The optical depth is a direct parameter,
 so there is no partition function.  ``nnhp_predict`` is the plain
 PyTorch model; ``fused_chi2`` computes the same prediction and its
 squared residual against the data in one launch of the Hopper kernel
-``ops.fused.hf_chi2_fused`` (the NH3 model's kernel, up to its 48
-hyperfine lines: N2H+ (3-2) has 45).
+``ops.fused.hf_chi2_fused`` (the NH3 model's kernel, up to its
+``MAX_LINES`` hyperfine lines: N2H+ (3-2) has 45).
 """
 
 import torch

@@ -24,7 +24,7 @@ from nestfit_tpu_torch.ops import _build
 SOURCE = "hf_chi2.cu"
 GAUSS_SOURCE = "gauss_chi2.cu"
 MAX_COMP = 8     # kMaxComp in both sources
-MAX_LINES = 48   # kMaxLines in hf_chi2.cu
+MAX_LINES = 192  # kMaxLines in hf_chi2.cu
 
 _LINE_TABLES = {}
 # 10 pointers, B, C, R, S, nhf, device, stream

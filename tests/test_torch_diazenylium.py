@@ -67,12 +67,17 @@ def _params(n, ncomp, seed):
 
 def test_k1_line_cap_covers_every_transition():
     """``MAX_LINES`` mirrors ``kMaxLines`` in the CUDA source, and every
-    NH3 and N2H+ transition fits under it (N2H+ (3-2) has 45 lines)."""
+    NH3 and N2H+ transition fits under it (N2H+ (3-2) has 45 lines).
+    The cap is the per-row line tables' dynamic shared memory: two rows
+    of C = 8 components at 16 B a line may not pass the 48 KB a launch
+    takes without opting in."""
     src = (_build.CSRC_DIR / fused.SOURCE).read_text()
     assert int(re.search(r"kMaxLines = (\d+);", src).group(1)) \
         == fused.MAX_LINES
     nhf = [t.nhf for t in AMMONIA_TRANSITIONS + DIAZENYLIUM_TRANSITIONS]
     assert max(nhf) == 45 and max(nhf) <= fused.MAX_LINES
+    rows = int(re.search(r"kRowsPerBlock = (\d+);", src).group(1))
+    assert rows * fused.MAX_COMP * fused.MAX_LINES * 16 <= 48 * 1024
 
 
 @pytest.mark.parametrize("trans_id", [1, 2, 3])

@@ -8,6 +8,8 @@ machine without them::
 Without a card every test skips (decided inside the test).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -34,16 +36,22 @@ def _card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("trans_id", [1, 2])
-@pytest.mark.parametrize("ncomp", [1, 2])
-def test_hf_chi2_kernel_matches_plain(ncomp, trans_id):
+@pytest.mark.parametrize("ncomp, trans_id, R, T, S", [
+    (1, 1, 64, 5, 380), (1, 2, 64, 5, 380),
+    (2, 1, 64, 5, 380), (2, 2, 64, 5, 380),
+    (2, 1, 64, 50, 380),   # B = 3,200: the compacted slice round
+    (2, 2, 7, 3, 380),     # B = 21: no multiple of the two rows per block
+    (2, 1, 3, 5, 20),      # one channel per lane, lanes past S
+    (2, 1, 5, 3, 600),     # two chunks of 320 channels
+    (1, 1, 2, 3, 1100),    # three chunks of 384 channels
+])
+def test_hf_chi2_kernel_matches_plain(ncomp, trans_id, R, T, S):
     _card()
-    R, T = 64, 5
     rng = np.random.default_rng(3)
-    xarr = freq_axis_from_velocity(np.linspace(-30, 30, 380),
+    xarr = freq_axis_from_velocity(np.linspace(-30, 30, S),
                                    AMMONIA_TRANSITIONS[trans_id - 1].nu)
     spec = ammonia.make_ammonia_spectrum(
-        xarr, rng.normal(scale=0.2, size=(R, 380)), 0.2, trans_id=trans_id)
+        xarr, rng.normal(scale=0.2, size=(R, S)), 0.2, trans_id=trans_id)
     utrans = get_irdc_priors()
     u = torch.as_tensor(rng.uniform(size=(T * R, 6 * ncomp)),
                         dtype=torch.float32, device="cuda")
@@ -56,6 +64,35 @@ def test_hf_chi2_kernel_matches_plain(ncomp, trans_id):
     got = fused.hf_chi2_fused(*args)
     torch.cuda.synchronize()
     assert fused.hf_chi2_fused.launches == n0 + 1
+    assert got.shape == (T * R,)
+    torch.testing.assert_close(got, fused.hf_chi2_plain(*args),
+                               rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_hf_chi2_kernel_at_the_line_cap():
+    """``MAX_LINES`` lines at ``MAX_COMP`` components: the per-row tables
+    fill the 48 KB of dynamic shared memory."""
+    _card()
+    base = DIAZENYLIUM_TRANSITIONS[2]
+    reps = -(-fused.MAX_LINES // base.nhf)
+    voff = np.concatenate([base.voff + 0.37 * k for k in range(reps)])
+    wts = np.tile(base.tau_wts, reps)[:fused.MAX_LINES]
+    trans = dataclasses.replace(base, voff=voff[:fused.MAX_LINES],
+                                tau_wts=wts / wts.sum())
+    assert trans.nhf == fused.MAX_LINES
+    R, T, C = 4, 5, fused.MAX_COMP
+    rng = np.random.default_rng(8)
+    xarr = freq_axis_from_velocity(np.arange(-20, 20, 0.1), trans.nu)
+    spec = diazenylium.make_diazenylium_spectrum(
+        xarr, rng.normal(scale=0.1, size=(R, xarr.shape[0])), 0.1,
+        trans_id=3)
+    comps = [torch.as_tensor(rng.uniform(lo, hi, (T * R, C)),
+                             dtype=torch.float32, device="cuda")
+             for lo, hi in ((-4, 4), (2.8, 12), (0.01, 2), (0.05, 1))]
+    args = (trans, spec.dnu, spec.t0, spec.tbg, spec.data, *comps)
+    got = fused.hf_chi2_fused(*args)
+    torch.cuda.synchronize()
     torch.testing.assert_close(got, fused.hf_chi2_plain(*args),
                                rtol=2e-4, atol=1e-3)
 
