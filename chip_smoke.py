@@ -6,8 +6,7 @@ Phases, in order; any failure exits non-zero:
 1. device   -- require CUDA; print the card's name and power limit.
 2. build    -- compile the four Hopper kernels from ``nestfit_tpu_torch/
                csrc`` (one ``nvcc`` per source, in parallel); print their
-               registers and spills, and the instruction mix of K1's
-               line loop (``cuobjdump -sass``).
+               registers and spills.
 3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3 at B = 51,200 and at the
                compacted B = 3,200, and N2H+ (1-0) and (3-2): 15 and 45
                lines), K2 ``table_lerp``, K3 ``tapered_invert``
@@ -16,8 +15,7 @@ Phases, in order; any failure exits non-zero:
                time them (kernel, plain version, library call): device
                time per call from ``torch.profiler``, and per-call time
                with CUDA events, which also counts host gaps between
-               launches.  ``--k1-baseline SOURCE`` also builds another
-               K1 source and times the two in turns at both widths.
+               launches.
 4. forward  -- ``loglike_unit`` at 256 px, ncomp 2, kernel path against
                plain path on the card: NH3 (1,1)+(2,2) at 384 ch, the
                Gaussian model at 380 ch, N2H+ (1-0)+(3-2) at 400 ch.
@@ -46,7 +44,6 @@ import json
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 
@@ -205,84 +202,9 @@ def k1_bound(B, C, R, S, nhf, n_sm, clock_hz):
             "operations" if t_ops >= t_mem else "bytes", n_exp)
 
 
-def k1_sass_line_loop(lib, k):
-    """Instruction counts of K1's kernel whose lanes own ``k`` channels,
-    from its SASS (``cuobjdump -sass``): ``(line, rest)``, where ``line``
-    is ``{opcode: count}`` over the line loop (the loop densest in
-    ``MUFU.EX2``) and ``rest`` the instructions of the enclosing
-    component loop outside it (the per-channel terms of ``k`` channels,
-    and the odd line of an unrolled line loop)."""
-    import re
-    import shutil
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=120, check=True).stdout
-    body = next(f for f in sass.split("Function : ")[1:]
-                if f"hf_chi2_kernelILi{k}E" in f.split("\n", 1)[0])
-    ops, index, loops = [], {}, []
-    for line in body.splitlines():
-        # "/*0a30*/  @P0 BRA 0x8c0 ;": address, predicate, opcode, operands
-        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
-                      r"([A-Z][\w.]*)([^;]*)", line)
-        if not m:
-            continue
-        index[int(m.group(1), 16)] = len(ops)
-        ops.append(m.group(2))
-        tgt = re.match(r"\s*0x([0-9a-f]+)", m.group(3))
-        if ops[-1] == "BRA" and tgt and int(tgt.group(1), 16) in index:
-            loops.append((index[int(tgt.group(1), 16)], len(ops)))  # backward
-    a, b = max(loops, key=lambda lp: ops[lp[0]:lp[1]].count("MUFU.EX2")
-               / (lp[1] - lp[0]))
-    outer = min((lp for lp in loops if lp[0] <= a and b <= lp[1]
-                 and lp != (a, b)), key=lambda lp: lp[1] - lp[0])
-    loop = ops[a:b]
-    return ({op: loop.count(op) for op in set(loop)},
-            outer[1] - outer[0] - (b - a))
-
-
-def compare_k1(source, timing):
-    """Build another K1 source (the same C interface and flags), hold it
-    against the plain version, and time it and the package's kernel in
-    turns (package, other, other, package) at each width of ``timing``."""
-    import ctypes
-    import torch
-    from nestfit_tpu_torch.ops import _build, fused
-
-    lib = _build.BUILD_DIR / f"k1_compare_{Path(source).stem}.so"
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                    source], check=True, capture_output=True, text=True,
-                   timeout=600)
-    fn = ctypes.CDLL(str(lib)).hf_chi2_launch
-    fn.restype, fn.argtypes = ctypes.c_int, fused._ARGTYPES
-
-    def other(trans, dnu, t0, tbg, data, voff, tex, tau0, sigm):
-        (B, C), (R, S) = voff.shape, data.shape
-        out = torch.empty((B,), dtype=torch.float32, device="cuda")
-        lines = fused.line_table(trans, voff.device)
-        _build.check(fn(*(x.data_ptr() for x in (
-            voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out)),
-            B, C, R, S, trans.nhf, voff.device.index,
-            torch.cuda.current_stream().cuda_stream), source)
-        return out
-
-    for args in timing.values():
-        B = args[5].shape[0]
-        check_close(f"K1 {source} B={B}", other(*args),
-                    fused.hf_chi2_plain(*args), atol=1e-3)
-        times = [time_ms(lambda: f(*args), 20)[0] for f in (
-            fused.hf_chi2_fused, other, other, fused.hf_chi2_fused)]
-        print(f"K1 in turns B={B}: this kernel {times[0]:.4f}, "
-              f"{times[3]:.4f} ms; {source} {times[1]:.4f}, {times[2]:.4f} "
-              f"ms; ratio {(times[1] + times[2]) / (times[0] + times[3]):.3f}",
-              flush=True)
-
-
-def phase_kernels(seed, n_sm, clock_hz, k1_baseline=None):
+def phase_kernels(seed, n_sm, clock_hz):
     """Hold each kernel against its plain version; returns the kernel
-    records of the JSON line (without their launch counts).
-    ``k1_baseline``, a path to another K1 source, adds
-    :func:`compare_k1`."""
+    records of the JSON line (without their launch counts)."""
     import torch
     from nestfit_tpu_torch.models import ammonia
     from nestfit_tpu_torch.ops import fused, tables
@@ -339,8 +261,6 @@ def phase_kernels(seed, n_sm, clock_hz, k1_baseline=None):
               f"{bound_ms:.4f} ms ({n_exp:.3e} exp at {clock_hz / 1e6:.0f} "
               f"MHz, {bound_by})", flush=True)
     records["hf_chi2_fused"] = rec
-    if k1_baseline:
-        compare_k1(k1_baseline, timing)
 
     # ---- K2: the trot PPF (N = 500) at ~1e6 positions, plus endpoints
     dist = utrans.priors[1].dist
@@ -698,9 +618,6 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, choices=(1, 2),
                     help="also profile the rung of this ncomp")
-    ap.add_argument("--k1-baseline", metavar="SOURCE",
-                    help="another hf_chi2 CUDA source to time against K1 "
-                         "in turns")
     args = ap.parse_args()
 
     import torch
@@ -725,23 +642,11 @@ def main():
     print(f"build: {secs:.1f} s", flush=True)
     for src in _build.SOURCES:
         for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {src}: {line.strip()}", flush=True)
-    for k in (12, 13):     # S = 380 (NH3) and S = 400 (N2H+)
-        try:
-            mix, rest = k1_sass_line_loop(_build._lib_path(fused.SOURCE), k)
-        except (OSError, ValueError, StopIteration,
-                subprocess.SubprocessError) as exc:
-            print(f"K1 SASS (K={k}): not read ({exc!r})", flush=True)
-            continue
-        n_ex2 = mix.get("MUFU.EX2", 0)
-        print(f"K1 SASS (K={k}): line loop {sum(mix.values())} "
-              f"instructions, {n_ex2} MUFU.EX2, "
-              f"{sum(mix.values()) / max(n_ex2, 1):.2f} per exponential "
-              f"{json.dumps(dict(sorted(mix.items())))}; component loop "
-              f"outside it {rest} ({rest / k:.1f} per channel)", flush=True)
 
-    records = phase_kernels(args.seed, n_sm, clock_hz, args.k1_baseline)
+    records = phase_kernels(args.seed, n_sm, clock_hz)
     phase_forward(args.seed)
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
                 "table_lerp": tables.table_lerp,

@@ -19,10 +19,10 @@
 // Design: one warp per row, kRowsPerBlock rows per block.  The warp first
 // folds its row's per-line terms into a shared table, one float4 per
 // (component, line): {centre, -log2(e) / (2 hw^2), amplitude}.  Each lane
-// owns K channels lane + 32k of a chunk of at most 32 * kMaxChanPerLane
-// channels (one chunk up to 512; longer spectra run in chunks of equal
-// width) and keeps their dnu, one component's K opacity accumulators and
-// the K predictions in registers.  The line loop is outermost: one
+// owns K channels lane + 32k of a chunk of 32 K channels (K one of
+// kChanPerLane; a spectrum runs in as many chunks as it needs) and keeps
+// their dnu, one component's K opacity accumulators and the K
+// predictions in registers.  The line loop is outermost: one
 // broadcast shared load per line feeds K channels, each
 //   d = x - cen;  tau += amp * ex2(d * d * k)
 // that is one subtract, two multiplies, one MUFU.EX2 and one FMA, so the
@@ -46,7 +46,11 @@ namespace {
 
 constexpr int kMaxComp = 8;
 constexpr int kRowsPerBlock = 2;    // one warp per row
-constexpr int kMaxChanPerLane = 16;
+// The channels per lane that are built: K = 12 covers S = 380 and 384
+// (NH3) and K = 13 S = 400 (N2H+) in one chunk; any other S runs in
+// chunks of the K that leaves the fewest idle channel slots.
+constexpr int kChanPerLane[] = {4, 8, 12, 13, 16};
+constexpr int kNumK = sizeof(kChanPerLane) / sizeof(kChanPerLane[0]);
 // The per-row tables take kRowsPerBlock * C * nhf * 16 B of dynamic
 // shared memory: 49,152 B at C = 8 and 192 lines, the most a launch may
 // ask for without opting in.  N2H+ (3-2) has 45 lines.
@@ -147,14 +151,10 @@ using Kernel = void (*)(const float*, const float*, const float*,
                         const float*, const float*, const float*, float*,
                         int, int, int, int, int);
 
-// kKernels[K - 1] is the kernel whose lanes own K channels of a chunk
-const Kernel kKernels[kMaxChanPerLane] = {
-    hf_chi2_kernel<1>,  hf_chi2_kernel<2>,  hf_chi2_kernel<3>,
-    hf_chi2_kernel<4>,  hf_chi2_kernel<5>,  hf_chi2_kernel<6>,
-    hf_chi2_kernel<7>,  hf_chi2_kernel<8>,  hf_chi2_kernel<9>,
-    hf_chi2_kernel<10>, hf_chi2_kernel<11>, hf_chi2_kernel<12>,
-    hf_chi2_kernel<13>, hf_chi2_kernel<14>, hf_chi2_kernel<15>,
-    hf_chi2_kernel<16>};
+// kKernels[i] is the kernel whose lanes own kChanPerLane[i] channels
+const Kernel kKernels[kNumK] = {hf_chi2_kernel<4>, hf_chi2_kernel<8>,
+                                hf_chi2_kernel<12>, hf_chi2_kernel<13>,
+                                hf_chi2_kernel<16>};
 
 }  // namespace
 
@@ -175,14 +175,18 @@ extern "C" int hf_chi2_launch(const float* voff, const float* tex,
   if (C < 1 || C > kMaxComp || nhf < 1 || nhf > kMaxLines || R < 1 ||
       S < 1 || B % R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the fewest chunks of at most 32 * kMaxChanPerLane channels, then the
-  // narrowest K that covers S with them
-  const int chunks = (S + 32 * kMaxChanPerLane - 1) / (32 * kMaxChanPerLane);
-  const int K = (S + 32 * chunks - 1) / (32 * chunks);
+  // the K whose chunks of 32 K channels cover S with the fewest slots;
+  // on a tie the larger K (fewer chunks)
+  int best = 0, best_slots = 0;
+  for (int i = 0; i < kNumK; ++i) {
+    const int w = 32 * kChanPerLane[i];
+    const int slots = (S + w - 1) / w * w;
+    if (i == 0 || slots <= best_slots) best = i, best_slots = slots;
+  }
   const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
   const size_t smem = sizeof(float4) * kRowsPerBlock * C * nhf;
-  kKernels[K - 1]<<<blocks, 32 * kRowsPerBlock, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  kKernels[best]<<<blocks, 32 * kRowsPerBlock, smem,
+                   static_cast<cudaStream_t>(stream)>>>(
       voff, tex, tau0, sigm, data, dnu, t0, tbg, lines, out, B, C, R, S, nhf);
   return static_cast<int>(cudaGetLastError());
 }

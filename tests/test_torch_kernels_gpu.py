@@ -41,9 +41,11 @@ def _card():
     (2, 1, 64, 5, 380), (2, 2, 64, 5, 380),
     (2, 1, 64, 50, 380),   # B = 3,200: the compacted slice round
     (2, 2, 7, 3, 380),     # B = 21: no multiple of the two rows per block
-    (2, 1, 3, 5, 20),      # one channel per lane, lanes past S
-    (2, 1, 5, 3, 600),     # two chunks of 320 channels
-    (1, 1, 2, 3, 1100),    # three chunks of 384 channels
+    (2, 1, 3, 5, 20),      # K = 4, lanes past S
+    (2, 1, 3, 5, 256),     # K = 8
+    (1, 2, 3, 5, 512),     # K = 16
+    (2, 1, 5, 3, 600),     # five chunks of 128 channels (K = 4)
+    (1, 1, 2, 3, 1100),    # three chunks of 384 channels (K = 12)
 ])
 def test_hf_chi2_kernel_matches_plain(ncomp, trans_id, R, T, S):
     _card()
