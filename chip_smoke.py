@@ -9,16 +9,21 @@ Phases, in order; any failure exits non-zero:
                registers and spills.
 3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3 at B = 51,200 and at the
                compacted B = 3,200, and N2H+ (1-0) and (3-2): 15 and 45
-               lines), K2 ``table_lerp``, K3 ``tapered_invert``
-               and K4 ``gauss_chi2_fused`` against their plain PyTorch
-               versions on the same CUDA tensors at main-path shapes, and
-               time them (kernel, plain version, library call): device
-               time per call from ``torch.profiler``, and per-call time
-               with CUDA events, which also counts host gaps between
-               launches.
-4. forward  -- ``loglike_unit`` at 256 px, ncomp 2, kernel path against
-               plain path on the card: NH3 (1,1)+(2,2) at 384 ch, the
-               Gaussian model at 380 ch, N2H+ (1-0)+(3-2) at 400 ch.
+               lines) and K4 ``gauss_chi2_fused`` against their plain
+               PyTorch versions on the same CUDA tensors at main-path
+               shapes, K2 ``table_lerp`` and K3 ``tapered_invert`` bit for
+               bit (K3 at B = 3,200, 51,200 and 102,400 on what the IRDC
+               transform hands it), and time them (kernel, plain version,
+               library call): device time per call from
+               ``torch.profiler``, and per-call time with CUDA events in a
+               loop of its own, which also counts host gaps between
+               launches; beside them the launch floor, a one-element
+               ``fill_``.
+4. forward  -- at ``--seed`` and ``--seed`` + 1, ncomp 2, 256 px on the
+               card: the kernel prior transform bit for bit equal to the
+               plain one, and ``loglike_unit`` of the kernel path against
+               the plain path: NH3 (1,1)+(2,2) at 384 ch, the Gaussian
+               model at 380 ch, N2H+ (1-0)+(3-2) at 400 ch.
 5. ladder   -- ``fit_batch`` on a seeded synthetic NH3 (1,1)+(2,2) cube
                (``--pixels``, default 1024; noise 0.15), ncomp 1 then 2,
                nlive 100, tol 1.0, init_factor 4, segment_iters 250.  The
@@ -55,6 +60,9 @@ SFU_EXP_PER_CLOCK_PER_SM = 16
 LADDER = dict(nlive=100, tol=1.0, init_factor=4)
 GAUSS_NOISE, N2HP_NOISE = 0.15, 0.1
 K1_COMPACT_ROWS = 64     # NSConfig.min_compact: the narrowest K1 launch
+# K3's launch widths T x R on the ladders: the compacted slice round,
+# the NH3/N2H+ and the Gaussian candidate rounds
+K3_WIDTHS = (50 * 64, 50 * 1024, 100 * 1024)
 
 
 def fail(msg):
@@ -72,28 +80,65 @@ def smi(query):
 def time_ms(fn, reps, warmup=3):
     """``(device_ms, call_ms)`` per call of ``fn`` over ``reps`` calls
     after ``warmup``: the device time of the kernels it launched
-    (``torch.profiler``), and the CUDA-event time per call, which also
-    holds any gap the host leaves between launches."""
+    (``torch.profiler``), and, in a loop of its own outside the
+    profiler (whose host cost would lengthen it), the CUDA-event time
+    per call, which also holds any gap the host leaves between
+    launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
         for _ in range(reps):
             fn()
-        end.record()
         torch.cuda.synchronize()
     dev_us = sum(
         getattr(ev, "self_device_time_total",
                 getattr(ev, "self_cuda_time_total", 0))
         for ev in prof.key_averages()
         if ev.device_type == torch.autograd.DeviceType.CUDA)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
     return dev_us / 1e3 / reps, start.elapsed_time(end) / reps
+
+
+def launch_floor():
+    """``(device_ms, call_ms)`` of a one-element ``fill_``: what any
+    launch costs on this card, under the same profiler."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return time_ms(lambda: x.fill_(1.0), 200)
+
+
+def capture_k3(utrans, u, ncomp):
+    """The K3 launches of ``utrans.transform(u, ncomp)``: a list of
+    ``(dist, u, x_lo, x_hi, sfact)``, copied as the transform hands them
+    over."""
+    from nestfit_tpu_torch.ops import tables
+
+    k3, calls = tables.tapered_invert, []
+
+    def record(dist, uu, x_lo, x_hi, sfact):
+        calls.append((dist, uu.clone(), x_lo.clone(), x_hi.clone(), sfact))
+        return k3(dist, uu, x_lo, x_hi, sfact)
+
+    # the wrapper counts its launches through the module's name
+    record.launches = 0
+    tables.tapered_invert = record
+    try:
+        utrans.transform(u, ncomp)
+    finally:
+        tables.tapered_invert = k3
+    return calls
 
 
 def make_runner(xa, data, noise, ncomp, utrans):
@@ -274,9 +319,10 @@ def phase_kernels(seed, n_sm, clock_hz):
     torch.cuda.synchronize()
     err = (got - want).abs()
     print(f"K2 table_lerp B={scaled.numel()}: max_abs_err="
-          f"{err.max().item():.3e}", flush=True)
-    if not bool(torch.all(err <= 2e-6 + 2e-6 * want.abs())):
-        fail("K2 disagrees with its plain version")
+          f"{err.max().item():.3e}, bit for bit: "
+          f"{torch.equal(got, want)}", flush=True)
+    if not torch.equal(got, want):
+        fail("K2 is not its plain version bit for bit")
     if not torch.equal(ends, dist.ppf[[0, N - 1]]):
         fail(f"K2 endpoints not exact: {ends.tolist()}")
     ms, call = time_ms(lambda: tables.table_lerp(dist.ppf, scaled), 50)
@@ -307,40 +353,52 @@ def phase_kernels(seed, n_sm, clock_hz):
           f"{plain_ms:.4f} ms, "
           f"grid_sample {library_ms:.4f} ms (err {lib_err:.2e})", flush=True)
 
-    # ---- K3: voff placement tables, sfact 0/1/2, B ~ 1e5
-    dist = utrans.priors[0].vcen_prior.dist
-    B = 1 << 17
-    lo = rng.uniform(-4, 3, size=B)
-    hi = lo + rng.uniform(0.005, 6, size=B)
-    cols = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-            for a in (rng.uniform(size=B), lo, hi)]
-    worst = 0.0
-    for sf in (0, 1, 2):
-        args = (dist.t0, dist.t1c, dist.t2c, dist.xax, *cols, sf, dist.size,
-                dist.xmin, dist.dx, dist.center)
-        got = tables.tapered_invert(*args)
-        want = tables.tapered_invert_plain(*args)
-        torch.cuda.synchronize()
-        e = (got - want).abs().max().item()
-        print(f"K3 tapered_invert sfact={sf} B={B}: max_abs_err={e:.3e} "
-              f"(bar {0.51 * dist.dx:.3e})", flush=True)
-        if not e < 0.51 * dist.dx or not bool(torch.isfinite(got).all()):
-            fail(f"K3 disagrees with its plain version (sfact={sf})")
-        worst = max(worst, e)
-        if sf == 1:
-            timing = args
-    ms, call = time_ms(lambda: tables.tapered_invert(*timing), 50)
-    plain_ms, _ = time_ms(lambda: tables.tapered_invert_plain(*timing), 10)
-    n_bytes = 16 * B + 16 * dist.size
-    records["tapered_invert"] = dict(
-        name="tapered_invert", route="cuda",
-        source="nestfit_tpu_torch/csrc/tapered_invert.cu",
-        replaces="nestfit_tpu/ops/tables.py:199",
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=n_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=None)
-    print(f"K3 timing (sfact=1): kernel {ms:.4f} ms (per call {call:.4f} "
-          f"ms), plain {plain_ms:.4f} ms", flush=True)
+    # ---- K3 on what the IRDC transform at ncomp 2 hands it (sfact 1,
+    # then sfact 0), at the path's widths T x R: 50 x 64 (the compacted
+    # slice round), 50 x 1024 (the NH3 and N2H+ candidate rounds),
+    # 100 x 1024 (the Gaussian candidate round); bit for bit against the
+    # plain version, at sfact 2 on the same inputs too
+    floor_ms, floor_call = launch_floor()
+    print(f"launch floor (one-element fill_): device {floor_ms:.4f} ms, "
+          f"per call {floor_call:.4f} ms", flush=True)
+    rec = dict(name="tapered_invert", route="cuda",
+               source="nestfit_tpu_torch/csrc/tapered_invert.cu",
+               replaces="nestfit_tpu/ops/tables.py:199", max_abs_err=0.0,
+               bound_by="bytes", library_ms=None, floor_ms=floor_ms)
+    for B in K3_WIDTHS:
+        u = torch.as_tensor(rng.uniform(size=(B, 12)), dtype=torch.float32,
+                            device="cuda")
+        calls = capture_k3(utrans, u, 2)
+        if [c[4] for c in calls] != [1, 0]:
+            fail(f"K3: the ncomp-2 transform launched sfact "
+                 f"{[c[4] for c in calls]}, not [1, 0]")
+        for dist, *cols, sf in calls:
+            for s in (sf, 2):
+                got = tables.tapered_invert(dist, *cols, s)
+                want = tables.tapered_invert_plain(dist, *cols, s)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                if not torch.equal(got, want):
+                    fail(f"K3 is not its plain version bit for bit (B={B}, "
+                         f"sfact={s}, max |err| {err:.3e})")
+            ms, call = time_ms(lambda: tables.tapered_invert(dist, *cols, sf),
+                               50)
+            suffix = f"_{B}" + ("_sf0" if sf == 0 else "")
+            rec[f"ms{suffix}"] = ms
+            rec[f"call_ms{suffix}"] = call
+            if sf == 1:
+                rec[f"plain_ms_{B}"], _ = time_ms(
+                    lambda: tables.tapered_invert_plain(dist, *cols, sf), 10)
+                n_bytes = 16 * B + 16 * dist.size
+                rec[f"bound_ms_{B}"] = n_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"K3 tapered_invert B={B} sfact={sf}: bit for bit; kernel "
+                  f"{ms:.4f} ms (per call {call:.4f} ms), bound "
+                  f"{rec[f'bound_ms_{B}']:.5f} ms", flush=True)
+    B = K3_WIDTHS[1]
+    rec.update(ms=rec[f"ms_{B}"], plain_ms=rec[f"plain_ms_{B}"],
+               bound_ms=rec[f"bound_ms_{B}"])
+    records["tapered_invert"] = rec
 
     # ---- K4 at the Gaussian ladder's candidate round: D <= 6 gives
     # kill_k = nlive / 2 = 50, so T = n_cand = 100; R = 1024, S = 380
@@ -412,44 +470,68 @@ def phase_kernels(seed, n_sm, clock_hz):
     return records
 
 
-def phase_forward(seed):
-    """The forward step at the ``__graft_entry__.entry()`` shapes."""
+FORWARD_PIXELS = 256
+
+
+def forward_cases(seed):
+    """``[(label, runner, u), ...]``: the forward step at the
+    ``__graft_entry__.entry()`` shapes, ncomp 2, for the NH3 (1,1)+(2,2)
+    (384 ch), Gaussian (380 ch) and N2H+ (1-0)+(3-2) (400 ch) runners,
+    with a unit cube ``u`` near its centre for each."""
     import torch
     from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS
-    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.priors import get_diazenylium_priors, \
+        get_gaussian_priors, get_irdc_priors
     from nestfit_tpu_torch.utils import freq_axis_from_velocity
 
-    n_pix, n_chan, ncomp = 256, 384, 2
+    n_pix, n_chan, ncomp = FORWARD_PIXELS, 384, 2
     rng = np.random.default_rng(seed)
     vaxis = np.linspace(-30, 30, n_chan)
     xa = [freq_axis_from_velocity(vaxis, AMMONIA_TRANSITIONS[t].nu)
           for t in (0, 1)]
     data = [rng.normal(scale=0.2, size=(n_pix, n_chan)) for _ in (0, 1)]
-    from nestfit_tpu_torch.priors import get_diazenylium_priors, \
-        get_gaussian_priors
 
     def unit(n_model):
         u = np.clip(0.5 + rng.normal(scale=0.1, size=(n_pix, n_model * ncomp)),
                     0, 1)
         return torch.as_tensor(u, dtype=torch.float32, device="cuda")
 
-    checks = [(f"NH3 {n_chan} ch", make_runner(
+    cases = [(f"NH3 {n_chan} ch", make_runner(
         xa, data, 0.2, ncomp, get_irdc_priors(device="cuda")), unit(6))]
     xarr, rest, data, _ = gauss_cube(n_pix, rng)
     cubes = [(tid, *n2hp_cube(n_pix, rng, tid)) for tid in (1, 3)]
-    checks += [
+    cases += [
         ("gaussian 380 ch", make_gauss_runner(
             xarr, rest, data, ncomp, get_gaussian_priors(device="cuda")),
          unit(3)),
         ("n2h+ (1-0)+(3-2) 400 ch", make_n2hp_runner(
             cubes, ncomp, get_diazenylium_priors(device="cuda")), unit(4))]
-    for label, runner, u in checks:
+    return cases
+
+
+def phase_forward(seed):
+    """Each forward case: the kernel transform bit for bit equal to the
+    plain one, and ``loglike_unit`` (kernels) within atol 5e-2 / rtol
+    2e-4 of ``loglike_unit(plain=True)``."""
+    import torch
+
+    for label, runner, u in forward_cases(seed):
+        theta = runner.transform(u)
+        want = runner.transform(u, plain=True)
+        torch.cuda.synchronize()
+        n_diff = int((theta != want).sum())
+        print(f"forward seed {seed}: {label} transform: {n_diff} of "
+              f"{want.numel()} parameters differ from the plain path",
+              flush=True)
+        if n_diff:
+            fail(f"forward {label}: the kernel transform is not the plain one "
+                 "(python3 tools/trace_transform.py traces it)")
         got = runner.loglike_unit(u)
-        if got.shape != (n_pix,):
+        if got.shape != (u.shape[0],):
             fail(f"forward {label}: bad lnL shape {tuple(got.shape)}")
-        check_close(f"forward: {label} loglike_unit {n_pix} px "
-                    f"ncomp={ncomp}", got, runner.loglike_unit(u, plain=True),
-                    atol=5e-2)
+        check_close(f"forward seed {seed}: {label} loglike_unit "
+                    f"{u.shape[0]} px ncomp={runner.ncomp}", got,
+                    runner.loglike_unit(u, plain=True), atol=5e-2)
 
 
 def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
@@ -648,6 +730,7 @@ def main():
 
     records = phase_kernels(args.seed, n_sm, clock_hz)
     phase_forward(args.seed)
+    phase_forward(args.seed + 1)
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,

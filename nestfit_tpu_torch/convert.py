@@ -28,7 +28,7 @@ def _build(cls, fields: dict, device, skip=()):
     device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(cls):
-        if f.name in skip:
+        if f.name in skip or not f.init:   # derived in __post_init__
             continue
         v = fields[f.name]
         kw[f.name] = _tensor(v, device) if isinstance(v, np.ndarray) else v

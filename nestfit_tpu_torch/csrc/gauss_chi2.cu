@@ -6,106 +6,172 @@
 //   pred(s) = sum_c peak_c exp(-(dnu_s + voff_c f)^2 / (2 (sigm_c f)^2))
 // with f = rest_freq / c (folded in float64 on the host, passed as
 // float32), and writes chi2[b] = sum_s (data[r, s] - pred(s))^2.
-// Semantics follow the plain path (models/gaussian.py::gauss_predict):
-// no channel padding, no sentinel, no clamp of sigm (the Pallas kernel
+// Semantics follow the plain path (models/gaussian.py::mixture): no
+// channel padding, no sentinel, no clamp of sigm (the Pallas kernel
 // clamped only for its padded rows).
 //
-// Bound on the H100: arithmetic.  A row costs C*S exponentials (2*380 =
+// Bound on the H100: the SFU.  A row costs C*S exponentials (2*380 =
 // 760 at C=2 on a 380-channel axis) against 12 bytes of parameters per
 // component and 4 bytes out, so the SFU's exponential rate (16 per clock
-// per SM) sets the floor, not memory.  Design: one warp per row,
-// channels across the lanes (~12 per lane at S=380).  Each lane holds
-// the row's C centres, 1/(2 hw^2) and peaks in registers (C is a
-// template parameter, so the component loop unrolls), leaving one
-// subtract, two multiplies, one exponential and one FMA per component
-// and channel.  The data row is read from global memory; it is reused
-// across the T proposals of a launch through L2.  The squared residual
-// is reduced with warp shuffles; nothing but chi2 leaves the SM.
+// per SM) sets the floor.  What stood above it: one warp per row re-read
+// the pixel's 1.5 KB data row (and dnu) for each of the T proposals of a
+// launch, 156 MB from L2 at B = 102,400, and each exponential was a full
+// expf.
+//
+// Design: one warp per pixel and a group of up to kMaxProps proposals of
+// that pixel (rows t*R + r).  Each lane owns K channels lane + 32k of a
+// chunk of 32 K channels (K one of kChanPerLane, as in hf_chi2.cu; a
+// spectrum runs in as many chunks as it needs) and holds their dnu and
+// the pixel's data in registers, loaded once for the whole group.  For
+// each proposal the C components are broadcast loads, folded into a
+// centre and a scale -log2(e) / (2 hw^2), so each (component, channel)
+// is one subtract, two multiplies, one ex2.approx.ftz and one FMA.  The
+// squared residual of each proposal is kept in its own register and
+// reduced by shuffles at the end.  ex2.approx.ftz flushes results below
+// 2^-126 to zero, where the plain path cuts at exp(-87); such terms are
+// below 1e-37 of a peak.  The launcher takes the largest group that
+// still leaves 16 warps per SM, so the data traffic falls by the group
+// size while the grid fills the card.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxComp = 8;
-constexpr int kRowsPerBlock = 8;   // one warp per row
+constexpr int kMaxProps = 8;
+constexpr int kWarps = 4;   // warps per block
+constexpr int kChanPerLane[] = {4, 8, 12, 13, 16};
+constexpr int kNumK = sizeof(kChanPerLane) / sizeof(kChanPerLane[0]);
+constexpr float kNegHalfLog2e = -0.72134752044448170f;   // -log2(e) / 2
 
-template <int C>
-__global__ void gauss_chi2_kernel(const float* __restrict__ voff,
-                                  const float* __restrict__ sigm,
-                                  const float* __restrict__ peak,
-                                  const float* __restrict__ data,
-                                  const float* __restrict__ dnu,
-                                  float* __restrict__ out,
-                                  int B, int R, int S, float fc) {
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ float ex2_approx_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int K>
+__global__ void __launch_bounds__(32 * kWarps)
+gauss_chi2_kernel(const float* __restrict__ voff,
+                  const float* __restrict__ sigm,
+                  const float* __restrict__ peak,
+                  const float* __restrict__ data,
+                  const float* __restrict__ dnu, float* __restrict__ out,
+                  int T, int R, int S, int C, int P, float fc) {
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kRowsPerBlock + warp;
-  if (b >= B) return;   // whole warps exit together
+  const long long w =
+      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  const int groups = (T + P - 1) / P;
+  if (w >= static_cast<long long>(groups) * R) return;   // whole warps
+  const int r = static_cast<int>(w % R);
+  const int t0 = static_cast<int>(w / R) * P;
+  const int np = min(P, T - t0);
 
-  float cen[C], idn[C], pk[C];
+  const float* drow = data + static_cast<size_t>(r) * S;
+  float acc[kMaxProps];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const float hw = sigm[b * C + c] * fc;
-    cen[c] = -voff[b * C + c] * fc;
-    idn[c] = 0.5f / (hw * hw);
-    pk[c] = peak[b * C + c];
-  }
-
-  const float* drow = data + static_cast<size_t>(b % R) * S;
-  float acc = 0.0f;
-  for (int s = lane; s < S; s += 32) {
-    const float x = dnu[s];
-    float pred = 0.0f;
+  for (int p = 0; p < kMaxProps; ++p) acc[p] = 0.0f;
+  for (int base = lane; base < S; base += 32 * K) {
+    // channel base + 32k of this lane; past S: dnu 0 (a finite stand-in)
+    // and no residual
+    float x[K], dat[K];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const float d = x - cen[c];
-      pred += pk[c] * expf(-(d * d) * idn[c]);
+    for (int k = 0; k < K; ++k) {
+      const bool in = base + 32 * k < S;
+      x[k] = in ? dnu[base + 32 * k] : 0.0f;
+      dat[k] = in ? drow[base + 32 * k] : 0.0f;
     }
-    const float dev = drow[s] - pred;
-    acc += dev * dev;
+#pragma unroll
+    for (int p = 0; p < kMaxProps; ++p) {
+      if (p >= np) continue;   // unrolled: acc[p] stays in a register
+      const size_t row = (static_cast<size_t>(t0 + p) * R + r) * C;
+      float pred[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) pred[k] = 0.0f;
+      for (int c = 0; c < C; ++c) {
+        const float hw = sigm[row + c] * fc;
+        const float cen = -voff[row + c] * fc;
+        const float scale = kNegHalfLog2e / (hw * hw);
+        const float pk = peak[row + c];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float d = x[k] - cen;
+          pred[k] = fmaf(pk, ex2_approx_ftz(d * d * scale), pred[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (base + 32 * k < S) {
+          const float dev = dat[k] - pred[k];
+          acc[p] = fmaf(dev, dev, acc[p]);
+        }
+      }
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) out[b] = acc;
+  for (int p = 0; p < kMaxProps; ++p) {
+    if (p >= np) continue;
+    float a = acc[p];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      a += __shfl_down_sync(0xffffffffu, a, off);
+    if (lane == 0) out[static_cast<size_t>(t0 + p) * R + r] = a;
+  }
 }
 
-template <int C>
-void launch(const float* voff, const float* sigm, const float* peak,
-            const float* data, const float* dnu, float* out, int B, int R,
-            int S, float fc, cudaStream_t stream) {
-  const int blocks = (B + kRowsPerBlock - 1) / kRowsPerBlock;
-  gauss_chi2_kernel<C><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      voff, sigm, peak, data, dnu, out, B, R, S, fc);
-}
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, const float*, float*, int, int, int,
+                        int, int, float);
+
+// kKernels[i] is the kernel whose lanes own kChanPerLane[i] channels
+const Kernel kKernels[kNumK] = {gauss_chi2_kernel<4>, gauss_chi2_kernel<8>,
+                                gauss_chi2_kernel<12>, gauss_chi2_kernel<13>,
+                                gauss_chi2_kernel<16>};
 
 }  // namespace
 
-// Launches on ``stream`` of card ``device``.  Returns cudaGetLastError()
+// Launches on ``stream`` of card ``device``.  ``props`` is the number of
+// proposals a warp takes (1 to 8), or 0 for the largest of 8, 4, 2, 1
+// that leaves at least 16 warps per SM.  Returns cudaGetLastError()
 // after the launch (0 on success); an argument outside the kernel's
 // limits returns cudaErrorInvalidValue.
 extern "C" int gauss_chi2_launch(const float* voff, const float* sigm,
                                  const float* peak, const float* data,
                                  const float* dnu, float* out, int B, int C,
-                                 int R, int S, float fc, int device,
-                                 void* stream) {
+                                 int R, int S, float fc, int props,
+                                 int device, void* stream) {
   if (B <= 0) return 0;
   // the launch goes to the tensors' card, whatever this library's
   // runtime last had current
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (C < 1 || C > kMaxComp || R < 1 || S < 1 || B % R != 0)
+  if (C < 1 || C > kMaxComp || R < 1 || S < 1 || B % R != 0 || props < 0 ||
+      props > kMaxProps)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 1: launch<1>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 2: launch<2>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 3: launch<3>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 4: launch<4>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 5: launch<5>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 6: launch<6>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 7: launch<7>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
-    case 8: launch<8>(voff, sigm, peak, data, dnu, out, B, R, S, fc, st); break;
+  const int T = B / R;
+  int P = props;
+  if (P == 0) {
+    int n_sm = 0;
+    const cudaError_t e =
+        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    P = kMaxProps;
+    while (P > 1 && static_cast<long long>((T + P - 1) / P) * R < 16LL * n_sm)
+      P /= 2;
   }
+  // the K whose chunks of 32 K channels cover S with the fewest slots;
+  // on a tie the larger K (fewer chunks)
+  int best = 0, best_slots = 0;
+  for (int i = 0; i < kNumK; ++i) {
+    const int w = 32 * kChanPerLane[i];
+    const int slots = (S + w - 1) / w * w;
+    if (i == 0 || slots <= best_slots) best = i, best_slots = slots;
+  }
+  const long long warps = static_cast<long long>((T + P - 1) / P) * R;
+  const long long blocks = (warps + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kKernels[best]<<<static_cast<unsigned>(blocks), 32 * kWarps, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      voff, sigm, peak, data, dnu, out, T, R, S, C, P, fc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,6 +8,12 @@
 // out = (1-f) table[i] + f table[i+1] -- exact at the integer
 // positions, so both endpoints come out exactly.
 //
+// Exactness: the blend is rounded after every operation, as the plain
+// version (ops/tables.py::table_lerp_plain) rounds it, so the two agree
+// bit for bit.  nvcc would otherwise contract it into an FMA, rounded
+// once instead of twice; the intrinsics below forbid that here without
+// -fmad=false for every kernel.
+//
 // Bound on the H100: memory.  Each element reads 4 bytes and writes 4
 // (8 B per element).  One thread per element; the table (2 KB at N = 500)
 // is read through the read-only/L1 path, where every block finds it
@@ -28,8 +34,9 @@ __global__ void table_lerp_kernel(const float* __restrict__ table, int N,
   float s = scaled[i];
   s = s < 0.0f ? 0.0f : (s > top ? top : s);
   const int lo = min(static_cast<int>(s), N - 2);   // s >= 0: trunc = floor
-  const float f = s - static_cast<float>(lo);
-  out[i] = (1.0f - f) * __ldg(table + lo) + f * __ldg(table + lo + 1);
+  const float f = __fsub_rn(s, static_cast<float>(lo));
+  out[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), __ldg(table + lo)),
+                     __fmul_rn(f, __ldg(table + lo + 1)));
 }
 
 }  // namespace

@@ -21,20 +21,10 @@ TAPER_SOURCE = "tapered_invert.cu"
 _LERP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
               ctypes.c_void_p]
-# t0, t1c, t2c, xax, u, x_lo, x_hi, out, B, N, sfact, xmin, dx, center,
-# n_sm, device, stream
-_TAPER_ARGS = [ctypes.c_void_p] * 8 + [
+# cells, u, x_lo, x_hi, out, B, N, sfact, xmin, dx, center, device, stream
+_TAPER_ARGS = [ctypes.c_void_p] * 5 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p]
-_N_SM = {}
-
-
-def _n_sm(dev) -> int:
-    if dev.index not in _N_SM:
-        _N_SM[dev.index] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
-    return _N_SM[dev.index]
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check(name, dev, tensors):
@@ -78,12 +68,18 @@ def table_lerp(table, scaled):
 table_lerp.launches = 0
 
 
-def tapered_invert_plain(t0, t1c, t2c, xax, u, x_lo, x_hi, sfact: int,
-                         size: int, xmin: float, dx: float, center: float):
+def tapered_invert_plain(dist, u, x_lo, x_hi, sfact: int):
     """Plain version of :func:`tapered_invert`: the port of the jnp
     ``tapered_interval_invert`` body (gathers from the moment tables and
-    a fixed-depth lower-bound bisection)."""
+    a fixed-depth lower-bound bisection).
+
+    Each division is a true division by a tensor: PyTorch divides a CUDA
+    tensor by a Python float as a product with its rounded reciprocal,
+    and ``float / tensor`` is ``reciprocal() * float``, each an ulp off
+    the kernel's (and JAX's) division."""
     s = int(sfact)
+    size, xmin, center, dx = dist.size, dist.xmin, dist.center, dist.dx_t
+    t0, t1c, t2c, xax = dist.t0, dist.t1c, dist.t2c, dist.xax
     dtype = t0.dtype
     lo = torch.minimum(x_lo, x_hi)
     hi = torch.maximum(x_lo, x_hi)
@@ -132,31 +128,32 @@ def tapered_invert_plain(t0, t1c, t2c, xax, u, x_lo, x_hi, sfact: int,
     return xax[ih - 1] + (u - y_lo) * (dx / denom)
 
 
-def tapered_invert(t0, t1c, t2c, xax, u, x_lo, x_hi, sfact: int,
-                   size: int, xmin: float, dx: float, center: float):
-    """Invert the power-law-tapered interval CDF over ``[x_lo, x_hi]`` at
-    ``u`` (``u``/``x_lo``/``x_hi`` of one shape; ``sfact`` in 0, 1, 2)."""
+def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
+    """Invert the power-law-tapered interval CDF of ``dist`` (a
+    ``priors.distributions.Distribution``) over ``[x_lo, x_hi]`` at
+    ``u`` (``u``/``x_lo``/``x_hi`` of one shape; ``sfact`` in 0, 1, 2).
+    The kernel reads the distribution's packed ``cells`` table."""
     s = int(sfact)
     if not 0 <= s <= 2:
         raise ValueError("tapered_invert supports sfact in (0, 1, 2)")
     if u.device.type == "cpu":
-        return tapered_invert_plain(t0, t1c, t2c, xax, u, x_lo, x_hi, s,
-                                    size, xmin, dx, center)
+        return tapered_invert_plain(dist, u, x_lo, x_hi, s)
     dev = u.device
-    _check("tapered_invert", dev, [
-        ("t0", t0), ("t1c", t1c), ("t2c", t2c), ("xax", xax), ("u", u),
-        ("x_lo", x_lo), ("x_hi", x_hi)])
+    cells = dist.cells
+    _check("tapered_invert", dev, [("cells", cells), ("u", u),
+                                   ("x_lo", x_lo), ("x_hi", x_hi)])
     if x_lo.shape != u.shape or x_hi.shape != u.shape \
-            or any(t.shape != (size,) for t in (t0, t1c, t2c, xax)):
+            or cells.shape != (dist.size, 4):
         raise ValueError("tapered_invert: u/x_lo/x_hi must share a shape "
-                         f"and the tables hold {size} entries")
+                         f"and the cells table be [{dist.size}, 4]")
     out = torch.empty_like(u)
     fn = _build.function(TAPER_SOURCE, "tapered_invert_launch",
                          _TAPER_ARGS)
-    rc = fn(t0.data_ptr(), t1c.data_ptr(), t2c.data_ptr(), xax.data_ptr(),
+    # the launcher refuses a table that is not 16-byte aligned
+    rc = fn(cells.data_ptr(),
             u.data_ptr(), x_lo.data_ptr(), x_hi.data_ptr(), out.data_ptr(),
-            u.numel(), size, s, xmin, dx, center, _n_sm(dev), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+            u.numel(), dist.size, s, dist.xmin, dist.dx, dist.center,
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tapered_invert")
     tapered_invert.launches += 1
     return out

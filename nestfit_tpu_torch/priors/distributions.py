@@ -26,7 +26,13 @@ class Distribution:
     """Tabulated distribution: x-axis, PDF, CDF and PPF tables, plus the
     cumulative index-moment tables ``t0``/``t1c``/``t2c`` of the
     trapezoid weights (centred at the grid midpoint) that the tapered
-    interval inversion reads."""
+    interval inversion reads.
+
+    Derived on the tables' device when the distribution is made (and
+    again by :meth:`to`): ``cells``, the ``[N, 4]`` table
+    ``{t0, t1c, t2c, xax}`` per grid cell that K3 reads one 16-byte row
+    at a time, and ``dx_t``, ``dx`` as a 0-dim tensor, the divisor of
+    the plain tapered inversion."""
 
     xax: torch.Tensor
     pdf: torch.Tensor
@@ -40,6 +46,14 @@ class Distribution:
     du: float
     xmin: float
     xmax: float
+    cells: torch.Tensor = dataclasses.field(init=False, repr=False)
+    dx_t: torch.Tensor = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        cells = torch.stack([self.t0, self.t1c, self.t2c, self.xax], dim=-1)
+        object.__setattr__(self, "cells", cells.contiguous())
+        object.__setattr__(self, "dx_t", torch.tensor(
+            self.dx, dtype=self.t0.dtype, device=self.t0.device))
 
     @property
     def center(self) -> float:
@@ -161,5 +175,4 @@ def tapered_interval_invert(dist: Distribution, u, x_lo, x_hi, sfact: int,
     args = [torch.broadcast_to(x, shape).contiguous() for x in (u, x_lo, x_hi)]
     fn = table_ops.tapered_invert_plain if plain \
         else table_ops.tapered_invert
-    return fn(dist.t0, dist.t1c, dist.t2c, dist.xax, *args, int(sfact),
-              dist.size, dist.xmin, dist.dx, dist.center)
+    return fn(dist, *args, int(sfact))

@@ -29,6 +29,8 @@ from nestfit_tpu_torch.priors import (
 )
 from nestfit_tpu_torch.utils import freq_axis_from_velocity
 
+from _k3_inputs import k3_inputs
+
 
 def _card():
     if not torch.cuda.is_available():
@@ -101,28 +103,61 @@ def test_hf_chi2_kernel_at_the_line_cap():
 
 @pytest.mark.gpu
 def test_table_kernels_match_plain():
+    """K2 and K3 are their plain versions bit for bit: the same float32
+    operations, in the same order, each rounded on its own."""
     _card()
     x = np.linspace(-4, 4, 500)
     d = make_distribution(x, np.exp(-0.5 * (x / 1.7) ** 2) + 0.05)
     rng = np.random.default_rng(5)
     s = torch.as_tensor(rng.uniform(0, d.size - 1, 4096),
                         dtype=torch.float32, device="cuda")
-    torch.testing.assert_close(tables.table_lerp(d.ppf, s),
-                               tables.table_lerp_plain(d.ppf, s),
-                               rtol=2e-6, atol=2e-6)
+    assert torch.equal(tables.table_lerp(d.ppf, s),
+                       tables.table_lerp_plain(d.ppf, s))
     ends = tables.table_lerp(d.ppf, torch.tensor([0.0, d.size - 1.0],
                                                  device="cuda"))
     assert torch.equal(ends, d.ppf[[0, -1]])
-    lo = rng.uniform(-4, 3, size=4096)
-    cols = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-            for a in (rng.uniform(size=4096), lo,
-                      lo + rng.uniform(0.005, 6, size=4096))]
+    cols = [torch.as_tensor(a, device="cuda")
+            for a in k3_inputs(d.size, d.xmin, d.xmax, d.dx, seed=5)]
     for sf in (0, 1, 2):
-        args = (d.t0, d.t1c, d.t2c, d.xax, *cols, sf, d.size, d.xmin, d.dx,
-                d.center)
-        err = (tables.tapered_invert(*args)
-               - tables.tapered_invert_plain(*args)).abs().max().item()
-        assert err < 0.51 * d.dx
+        assert torch.equal(tables.tapered_invert(d, *cols, sf),
+                           tables.tapered_invert_plain(d, *cols, sf))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [3200, 51200, 102400])
+@pytest.mark.parametrize("grid", ["irdc", "flat"])
+def test_tapered_invert_kernel_equals_plain_at_path_widths(grid, B):
+    """K3 at the widths the path launches (the compacted slice round,
+    the NH3/N2H+ and the Gaussian candidate rounds), on the voff grids
+    of ``get_irdc_priors`` and ``get_diazenylium_priors``; the edge cases
+    and the seed-1 element repeat through the batch."""
+    _card()
+    ctor = get_irdc_priors if grid == "irdc" else get_diazenylium_priors
+    d = ctor().priors[0].vcen_prior.dist
+    cols = [torch.as_tensor(np.resize(a, B), device="cuda")
+            for a in k3_inputs(d.size, d.xmin, d.xmax, d.dx, seed=B)]
+    n0 = tables.tapered_invert.launches
+    for sf in (0, 1, 2):
+        got = tables.tapered_invert(d, *cols, sf)
+        assert got.shape == (B,)
+        assert torch.equal(got, tables.tapered_invert_plain(d, *cols, sf))
+    assert tables.tapered_invert.launches == n0 + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctor, n_param", [
+    (get_irdc_priors, 6), (get_gaussian_priors, 3),
+    (get_diazenylium_priors, 4)])
+def test_transform_kernel_path_equals_plain(ctor, n_param):
+    """The whole prior transform at ncomp 2, kernels against plain
+    versions: bit for bit, so the forward check compares likelihoods
+    on one set of parameters."""
+    _card()
+    u = torch.as_tensor(np.random.default_rng(9).uniform(
+        size=(50, 1024, 2 * n_param)), dtype=torch.float32, device="cuda")
+    utrans = ctor()
+    assert torch.equal(utrans.transform(u, 2),
+                       utrans.transform(u, 2, plain=True))
 
 
 @pytest.mark.gpu
@@ -162,13 +197,16 @@ def test_hf_chi2_kernel_on_n2hp_lines_matches_plain(trans_id):
                                rtol=2e-4, atol=1e-3)
 
 
-def _gauss_args(ncomp, R=64, T=5, seed=6):
+def _gauss_args(ncomp, R=64, T=5, seed=6, S=380):
+    """Gaussian-ladder inputs: ``S`` channels of 0.158 km/s around the
+    NH3 (1,1) line, components from the ``get_gaussian_priors``
+    transform."""
     rng = np.random.default_rng(seed)
     rest = AMMONIA_TRANSITIONS[0].nu
     dnu = torch.as_tensor(
-        freq_axis_from_velocity(np.arange(-30, 30, 0.158), rest) - rest,
-        dtype=torch.float32, device="cuda")
-    data = torch.as_tensor(rng.normal(scale=0.15, size=(R, dnu.shape[0])),
+        freq_axis_from_velocity(0.158 * (np.arange(S) - S // 2), rest)
+        - rest, dtype=torch.float32, device="cuda")
+    data = torch.as_tensor(rng.normal(scale=0.15, size=(R, S)),
                            dtype=torch.float32, device="cuda")
     u = torch.as_tensor(rng.uniform(size=(T * R, 3 * ncomp)),
                         dtype=torch.float32, device="cuda")
@@ -189,6 +227,24 @@ def test_gauss_chi2_kernel_matches_plain(ncomp):
     assert fused.gauss_chi2_fused.launches == n0 + 1
     torch.testing.assert_close(got, fused.gauss_chi2_plain(*args),
                                rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [380, 400, 1000])
+@pytest.mark.parametrize("T, R", [(1, 64), (3, 64), (100, 64), (1, 1024),
+                                  (3, 1024), (100, 1024)])
+def test_gauss_chi2_kernel_matches_plain_at_every_width(T, R, S):
+    """C = 1..8, with the launcher's own group of proposals and with
+    groups of 3 and 8 (short last groups when they do not divide T);
+    S = 1000 runs in chunks."""
+    _card()
+    for ncomp in range(1, fused.MAX_COMP + 1):
+        args = _gauss_args(ncomp, R=R, T=T, seed=ncomp, S=S)
+        want = fused.gauss_chi2_plain(*args)
+        for props in (0, 3, 8):
+            got = fused.gauss_chi2_fused(*args, props=props)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-3)
 
 
 @pytest.mark.gpu
