@@ -18,20 +18,23 @@
 // launch, 156 MB from L2 at B = 102,400, and each exponential was a full
 // expf.
 //
-// Design: one warp per pixel and a group of up to kMaxProps proposals of
+// Design: one warp per pixel and a group of P <= kMaxProps proposals of
 // that pixel (rows t*R + r).  Each lane owns K channels lane + 32k of a
 // chunk of 32 K channels (K one of kChanPerLane, as in hf_chi2.cu; a
 // spectrum runs in as many chunks as it needs) and holds their dnu and
-// the pixel's data in registers, loaded once for the whole group.  For
-// each proposal the C components are broadcast loads, folded into a
-// centre and a scale -log2(e) / (2 hw^2), so each (component, channel)
-// is one subtract, two multiplies, one ex2.approx.ftz and one FMA.  The
-// squared residual of each proposal is kept in its own register and
-// reduced by shuffles at the end.  ex2.approx.ftz flushes results below
-// 2^-126 to zero, where the plain path cuts at exp(-87); such terms are
-// below 1e-37 of a peak.  The launcher takes the largest group that
-// still leaves 16 warps per SM, so the data traffic falls by the group
-// size while the grid fills the card.
+// the pixel's data in registers, loaded once for the whole group.  The
+// warp first folds its group's components into a table in shared
+// memory, one lane per (proposal, component): {centre,
+// -log2(e) / (2 hw^2), peak}, so the division is done once and the
+// proposal loop reads one broadcast 16-byte row per component (loading
+// and dividing per proposal inside the loop measured 1.5x slower).
+// Each (component, channel) is then one subtract, two multiplies, one
+// ex2.approx.ftz and one FMA; each proposal's squared residual stays in
+// its own register and is reduced by shuffles at the end.
+// ex2.approx.ftz flushes results below 2^-126 to zero, where the plain
+// path cuts at exp(-87); such terms are below 1e-37 of a peak.  The
+// launcher takes the largest P of 8, 4, 2, 1 that still leaves 16 warps
+// per SM: at B = 102,400 the time fell with every step of P up to 8.
 
 #include <cuda_runtime.h>
 
@@ -58,6 +61,7 @@ gauss_chi2_kernel(const float* __restrict__ voff,
                   const float* __restrict__ data,
                   const float* __restrict__ dnu, float* __restrict__ out,
                   int T, int R, int S, int C, int P, float fc) {
+  __shared__ float4 s_tab[kWarps][kMaxProps * kMaxComp];
   const int lane = threadIdx.x & 31;
   const long long w =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
@@ -66,6 +70,17 @@ gauss_chi2_kernel(const float* __restrict__ voff,
   const int r = static_cast<int>(w % R);
   const int t0 = static_cast<int>(w / R) * P;
   const int np = min(P, T - t0);
+
+  // the group's components: {centre, -log2(e) / (2 hw^2), peak}
+  float4* tab = s_tab[threadIdx.x >> 5];
+  for (int k = lane; k < np * C; k += 32) {
+    const int p = k / C;
+    const size_t i = (static_cast<size_t>(t0 + p) * R + r) * C + (k - p * C);
+    const float hw = sigm[i] * fc;
+    tab[k] = make_float4(-voff[i] * fc, kNegHalfLog2e / (hw * hw), peak[i],
+                         0.0f);
+  }
+  __syncwarp();
 
   const float* drow = data + static_cast<size_t>(r) * S;
   float acc[kMaxProps];
@@ -84,19 +99,16 @@ gauss_chi2_kernel(const float* __restrict__ voff,
 #pragma unroll
     for (int p = 0; p < kMaxProps; ++p) {
       if (p >= np) continue;   // unrolled: acc[p] stays in a register
-      const size_t row = (static_cast<size_t>(t0 + p) * R + r) * C;
+      const float4* t = tab + p * C;
       float pred[K];
 #pragma unroll
       for (int k = 0; k < K; ++k) pred[k] = 0.0f;
       for (int c = 0; c < C; ++c) {
-        const float hw = sigm[row + c] * fc;
-        const float cen = -voff[row + c] * fc;
-        const float scale = kNegHalfLog2e / (hw * hw);
-        const float pk = peak[row + c];
+        const float4 e = t[c];
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-          const float d = x[k] - cen;
-          pred[k] = fmaf(pk, ex2_approx_ftz(d * d * scale), pred[k]);
+          const float d = x[k] - e.x;
+          pred[k] = fmaf(e.z, ex2_approx_ftz(d * d * e.y), pred[k]);
         }
       }
 #pragma unroll
@@ -130,35 +142,23 @@ const Kernel kKernels[kNumK] = {gauss_chi2_kernel<4>, gauss_chi2_kernel<8>,
 
 }  // namespace
 
-// Launches on ``stream`` of card ``device``.  ``props`` is the number of
-// proposals a warp takes (1 to 8), or 0 for the largest of 8, 4, 2, 1
-// that leaves at least 16 warps per SM.  Returns cudaGetLastError()
+// Launches on ``stream`` of card ``device``, with P the largest of 8, 4,
+// 2, 1 that leaves at least 16 warps per SM.  Returns cudaGetLastError()
 // after the launch (0 on success); an argument outside the kernel's
 // limits returns cudaErrorInvalidValue.
 extern "C" int gauss_chi2_launch(const float* voff, const float* sigm,
                                  const float* peak, const float* data,
                                  const float* dnu, float* out, int B, int C,
-                                 int R, int S, float fc, int props,
-                                 int device, void* stream) {
+                                 int R, int S, float fc, int device,
+                                 void* stream) {
   if (B <= 0) return 0;
   // the launch goes to the tensors' card, whatever this library's
   // runtime last had current
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (C < 1 || C > kMaxComp || R < 1 || S < 1 || B % R != 0 || props < 0 ||
-      props > kMaxProps)
+  if (C < 1 || C > kMaxComp || R < 1 || S < 1 || B % R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = B / R;
-  int P = props;
-  if (P == 0) {
-    int n_sm = 0;
-    const cudaError_t e =
-        cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    P = kMaxProps;
-    while (P > 1 && static_cast<long long>((T + P - 1) / P) * R < 16LL * n_sm)
-      P /= 2;
-  }
   // the K whose chunks of 32 K channels cover S with the fewest slots;
   // on a tie the larger K (fewer chunks)
   int best = 0, best_slots = 0;
@@ -167,6 +167,13 @@ extern "C" int gauss_chi2_launch(const float* voff, const float* sigm,
     const int slots = (S + w - 1) / w * w;
     if (i == 0 || slots <= best_slots) best = i, best_slots = slots;
   }
+  int n_sm = 0;
+  const cudaError_t e =
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int P = kMaxProps;
+  while (P > 1 && static_cast<long long>((T + P - 1) / P) * R < 16LL * n_sm)
+    P /= 2;
   const long long warps = static_cast<long long>((T + P - 1) / P) * R;
   const long long blocks = (warps + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

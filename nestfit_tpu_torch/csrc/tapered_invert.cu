@@ -28,14 +28,28 @@
 //
 // Bound on the H100: memory, 16 B per element (u, x_lo, x_hi in, one
 // result out); at the path's widths (B = 3,200 to 102,400) that is
-// below the time any launch takes, so the design aims at the latency
-// of one element: the four tables are packed per cell as one float4
-// {t0, t1c, t2c, xax} (16 N bytes, built once per distribution and
-// device), so a probe is one 16-byte load through the read-only path
-// (L1-resident after the first touch) followed by its divide.  No block
-// stages the tables or waits at a barrier; 128-thread blocks, one
-// element per thread and no grid cap spread a compacted B = 3,200 over
-// 25 SMs.
+// below the time any launch takes.  What is left is the latency of one
+// element's chain of ceil(log2 N) dependent probes, each a table read
+// and a comparison, so the design shortens the chain:
+// - The four tables are packed per cell as one float4 {t0, t1c, t2c,
+//   xax} (16 N bytes, built once per distribution and device): a probe
+//   reads one 16-byte row.
+// - Each block copies the packed table into shared memory, every
+//   thread's rows of it (and the element's inputs) in flight at once.
+//   Read through L1 instead, the probes past the bisection's first
+//   levels missed L1 and waited on L2: slower than the parent's staged
+//   tables at every path width.
+// - A probe decides fl(G(j) / total) < u without the divide: with
+//   m = (pred(u) + u) / 2, the rounding boundary below u, the rounded
+//   quotient is below u exactly when G(j) < total * m.  total * m is
+//   exact in float64 (m has a 25-bit odd significand, so the product
+//   takes at most 49 bits), so the comparison is exact and the probe
+//   picks the plain version's cell; G(j) never equals total * m (that
+//   needs more than float32's 24 bits), so no tie arises.  The divides
+//   that produce values (the interval's cells, y_lo, y_hi, dx / denom)
+//   stay.
+// 128-thread blocks, one element per thread and no grid cap spread a
+// compacted B = 3,200 over 25 SMs.
 
 #include <cuda_runtime.h>
 
@@ -43,18 +57,22 @@ namespace {
 
 constexpr float kTiny = 1e-30f;
 constexpr int kThreads = 128;
+constexpr int kStage = 4;   // table rows a thread copies at once
 
 template <int SF>
 struct Tapered {
-  const float4* cells;
+  const float4* cells;   // the block's copy in shared memory
   int i_lo, i_hi;
   bool degen;
   float ch, t0_lo, t1_lo, t2_lo, total;
 
-  // G(j) before normalisation, j clamped into [i_lo, i_hi - 1]
-  __device__ float raw(int j) const {
-    const int jj = j < i_lo ? i_lo : (j > i_hi - 1 ? i_hi - 1 : j);
-    const float4 c = __ldg(cells + jj);
+  // the table row G(j) reads: j clamped into [i_lo, i_hi - 1]
+  __device__ float4 row(int j) const {
+    return cells[j < i_lo ? i_lo : (j > i_hi - 1 ? i_hi - 1 : j)];
+  }
+
+  // G(j) before normalisation, from its row c = row(j)
+  __device__ float raw(const float4 c) const {
     const float d0 = __fsub_rn(c.x, t0_lo);
     if (SF == 0) return d0;
     const float d1 = __fsub_rn(c.y, t1_lo);
@@ -70,23 +88,51 @@ struct Tapered {
     if (j < i_lo) return 0.0f;
     if (j >= i_hi) return 1.0f;
     if (degen) return 1.0f;
-    return __fdiv_rn(raw(j), total);
+    return __fdiv_rn(raw(row(j)), total);
+  }
+
+  // norm(j) < u, exactly, without the divide: lim = total * m
+  __device__ bool below(int j, float uu, double lim) const {
+    if (j < i_lo) return 0.0f < uu;
+    if (j >= i_hi || degen) return 1.0f < uu;
+    return static_cast<double>(raw(row(j))) < lim;
   }
 };
 
 template <int SF>
 __global__ void __launch_bounds__(kThreads)
-tapered_invert_kernel(const float4* __restrict__ cells,
+tapered_invert_kernel(const float4* __restrict__ cells_g,
                       const float* __restrict__ u,
                       const float* __restrict__ x_lo,
                       const float* __restrict__ x_hi,
                       float* __restrict__ out, long long B, int N,
                       int n_probe, float xmin, float dx, float center) {
+  extern __shared__ float4 cells[];
   const long long e =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= B) return;
-  const float a = fminf(x_lo[e], x_hi[e]);
-  const float b = fmaxf(x_lo[e], x_hi[e]);
+  const bool live = e < B;
+  // the element's inputs, then the copy of the table, all in flight at
+  // once: kStage rows a thread before the first store waits on any
+  const float lo_in = live ? x_lo[e] : 0.0f;
+  const float hi_in = live ? x_hi[e] : 0.0f;
+  const float u_in = live ? u[e] : 1.0f;
+  for (int base = threadIdx.x; base < N; base += kStage * kThreads) {
+    float4 r[kStage];
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int k = base + i * kThreads;
+      if (k < N) r[i] = __ldg(cells_g + k);
+    }
+#pragma unroll
+    for (int i = 0; i < kStage; ++i) {
+      const int k = base + i * kThreads;
+      if (k < N) cells[k] = r[i];
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  const float a = fminf(lo_in, hi_in);
+  const float b = fmaxf(lo_in, hi_in);
   Tapered<SF> g;
   g.cells = cells;
   // trunc toward zero, as the plain version's .to(int64)
@@ -99,18 +145,23 @@ tapered_invert_kernel(const float4* __restrict__ cells,
   g.i_hi = i_hi;
   g.degen = (i_hi - i_lo) == 1;
   g.ch = __fsub_rn(static_cast<float>(i_hi), center);
-  const float4 c_lo = __ldg(cells + i_lo);
+  const float4 c_lo = cells[i_lo];
   g.t0_lo = c_lo.x;
   g.t1_lo = c_lo.y;
   g.t2_lo = c_lo.z;
-  g.total = fmaxf(g.raw(i_hi - 1), kTiny);
+  g.total = fmaxf(g.raw(g.row(i_hi - 1)), kTiny);
 
-  const float uu = fmaxf(u[e], kTiny);
+  const float uu = fmaxf(u_in, kTiny);
+  const float pu = nextafterf(uu, 0.0f);
+  const double lim = __dmul_rn(
+      static_cast<double>(g.total),
+      __dmul_rn(0.5, __dadd_rn(static_cast<double>(pu),
+                               static_cast<double>(uu))));
   // lower bound: first j in [0, N-1] with G(j) >= u
   int lo_j = 0, hi_j = N - 1;
   for (int p = 0; p < n_probe; ++p) {
     const int mid = (lo_j + hi_j) >> 1;
-    if (g.norm(mid) < uu) {
+    if (g.below(mid, uu, lim)) {
       lo_j = mid + 1;
     } else {
       hi_j = mid;
@@ -120,7 +171,7 @@ tapered_invert_kernel(const float4* __restrict__ cells,
   const float y_lo = g.norm(ih - 1);
   const float y_hi = g.norm(ih);
   const float denom = fmaxf(__fsub_rn(y_hi, y_lo), kTiny);
-  out[e] = __fadd_rn(__ldg(&cells[ih - 1].w),
+  out[e] = __fadd_rn(cells[ih - 1].w,
                      __fmul_rn(__fsub_rn(uu, y_lo), __fdiv_rn(dx, denom)));
 }
 
@@ -141,22 +192,25 @@ extern "C" int tapered_invert_launch(const void* cells, const float* u,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const long long blocks = (B + kThreads - 1) / kThreads;
-  if (N < 2 || sfact < 0 || sfact > 2 || blocks > 0x7fffffffLL ||
+  // the table in shared memory: 16 N bytes, within the default 48 KB
+  if (N < 2 || N > 3072 || sfact < 0 || sfact > 2 ||
+      blocks > 0x7fffffffLL ||
       reinterpret_cast<size_t>(cells) % sizeof(float4) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float4) * static_cast<size_t>(N);
   int n_probe = 0;
   while ((1 << n_probe) < N) ++n_probe;   // ceil(log2 N)
   const float4* c = static_cast<const float4*>(cells);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);
   if (sfact == 0) {
-    tapered_invert_kernel<0><<<g, kThreads, 0, st>>>(
+    tapered_invert_kernel<0><<<g, kThreads, smem, st>>>(
         c, u, x_lo, x_hi, out, B, N, n_probe, xmin, dx, center);
   } else if (sfact == 1) {
-    tapered_invert_kernel<1><<<g, kThreads, 0, st>>>(
+    tapered_invert_kernel<1><<<g, kThreads, smem, st>>>(
         c, u, x_lo, x_hi, out, B, N, n_probe, xmin, dx, center);
   } else {
-    tapered_invert_kernel<2><<<g, kThreads, 0, st>>>(
+    tapered_invert_kernel<2><<<g, kThreads, smem, st>>>(
         c, u, x_lo, x_hi, out, B, N, n_probe, xmin, dx, center);
   }
   return static_cast<int>(cudaGetLastError());

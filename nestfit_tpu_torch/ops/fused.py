@@ -25,14 +25,13 @@ SOURCE = "hf_chi2.cu"
 GAUSS_SOURCE = "gauss_chi2.cu"
 MAX_COMP = 8     # kMaxComp in both sources
 MAX_LINES = 192  # kMaxLines in hf_chi2.cu
-MAX_PROPS = 8    # kMaxProps in gauss_chi2.cu
 
 _LINE_TABLES = {}
 # 10 pointers, B, C, R, S, nhf, device, stream
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# voff, sigm, peak, data, dnu, out, B, C, R, S, fc, props, device, stream
+# voff, sigm, peak, data, dnu, out, B, C, R, S, fc, device, stream
 _GAUSS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _check_inputs(name, dev, inputs):
@@ -135,8 +134,7 @@ def gauss_chi2_plain(rest_freq_over_c, dnu, data, voff, sigm, peak):
     return torch.sum(resid * resid, dim=-1).reshape(B)
 
 
-def gauss_chi2_fused(rest_freq_over_c, dnu, data, voff, sigm, peak,
-                     props: int = 0):
+def gauss_chi2_fused(rest_freq_over_c, dnu, data, voff, sigm, peak):
     """Summed squared residual ``[B]`` of the Gaussian mixture.
 
     ``rest_freq_over_c`` is ``rest_freq / c`` (folded in float64 and
@@ -144,8 +142,7 @@ def gauss_chi2_fused(rest_freq_over_c, dnu, data, voff, sigm, peak,
     ``[R, S]`` (or ``[S]``), and ``voff``/``sigm``/``peak`` are ``[B, C]``
     with ``B = T * R``: flat row ``b`` is held against data row
     ``b % R``.  CUDA tensors launch the kernel (float32, contiguous);
-    CPU tensors take the plain version.  ``props`` (1-8) fixes how many
-    proposals of a pixel one warp takes; 0 lets the launcher choose.
+    CPU tensors take the plain version.
     """
     if data.ndim == 1:
         data = data[None]
@@ -161,15 +158,14 @@ def gauss_chi2_fused(rest_freq_over_c, dnu, data, voff, sigm, peak,
     _check_inputs("gauss_chi2_fused", dev,
                   [("params", p, (B, C)) for p in params]
                   + [("dnu", dnu, (S,)), ("data", data, (R, S))])
-    if not 1 <= C <= MAX_COMP or not 0 <= props <= MAX_PROPS:
-        raise ValueError(f"gauss_chi2_fused: {C} components / {props} "
-                         f"proposals a warp exceed the kernel's "
-                         f"{MAX_COMP}/{MAX_PROPS}")
+    if not 1 <= C <= MAX_COMP:
+        raise ValueError(f"gauss_chi2_fused: {C} components exceed the "
+                         f"kernel's {MAX_COMP}")
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     fn = _build.function(GAUSS_SOURCE, "gauss_chi2_launch", _GAUSS_ARGTYPES)
     rc = fn(*(p.data_ptr() for p in params), data.data_ptr(),
             dnu.data_ptr(), out.data_ptr(), B, C, R, S,
-            float(np.float32(rest_freq_over_c)), props, dev.index,
+            float(np.float32(rest_freq_over_c)), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "gauss_chi2_fused")
     gauss_chi2_fused.launches += 1

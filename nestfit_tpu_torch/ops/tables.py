@@ -37,7 +37,8 @@ def _check(name, dev, tensors):
 
 def table_lerp_plain(table, scaled):
     """Plain version of :func:`table_lerp`: gather the two bracketing
-    entries and blend them."""
+    entries and blend them, each operation rounded on its own (the
+    kernel repeats them in order, so the two agree bit for bit)."""
     N = table.shape[0]
     s = torch.clamp(scaled, 0.0, N - 1.0)
     lo = torch.clamp(s.to(torch.int64), max=N - 2)   # s >= 0: trunc = floor
@@ -75,8 +76,9 @@ def tapered_invert_plain(dist, u, x_lo, x_hi, sfact: int):
 
     Each division is a true division by a tensor: PyTorch divides a CUDA
     tensor by a Python float as a product with its rounded reciprocal,
-    and ``float / tensor`` is ``reciprocal() * float``, each an ulp off
-    the kernel's (and JAX's) division."""
+    and ``float / tensor`` is ``reciprocal() * float``; either can be an
+    ulp off the kernel's (and JAX's) division, and one ulp in
+    ``(x - xmin) / dx`` can move the interval by a grid cell."""
     s = int(sfact)
     size, xmin, center, dx = dist.size, dist.xmin, dist.center, dist.dx_t
     t0, t1c, t2c, xax = dist.t0, dist.t1c, dist.t2c, dist.xax
@@ -150,8 +152,8 @@ def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
     fn = _build.function(TAPER_SOURCE, "tapered_invert_launch",
                          _TAPER_ARGS)
     # the launcher refuses a table that is not 16-byte aligned
-    rc = fn(cells.data_ptr(),
-            u.data_ptr(), x_lo.data_ptr(), x_hi.data_ptr(), out.data_ptr(),
+    rc = fn(cells.data_ptr(), u.data_ptr(), x_lo.data_ptr(),
+            x_hi.data_ptr(), out.data_ptr(),
             u.numel(), dist.size, s, dist.xmin, dist.dx, dist.center,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tapered_invert")

@@ -4,12 +4,15 @@ version and the JAX package's tapered inversion on the same inputs.
 
 Numpy rounds every float32 operation on its own and never fuses a
 multiply into an add, as the kernel's ``__f*_rn`` intrinsics do, so the
-emulation below is the kernel's operation sequence.  The file shows
-that it equals ``tapered_invert_plain`` bit for bit (the card's bar),
-that it stays within half a grid cell of JAX, and that the bar can tell
-a contracted or reciprocal-based variant apart: the cumulative moment
-tables cancel for narrow intervals far from the grid centre, so an ulp
-in G or in ``(x - xmin) / dx`` moves the result by up to a table step.
+emulation below is the kernel's operation sequence, including its
+bisection probe, which compares in float64 where the plain version
+divides.  The file shows that it equals ``tapered_invert_plain`` bit
+for bit (the card's bar), that the probe goes where the dividing one
+goes, that it stays within half a grid cell of JAX, and that the bar
+can tell a contracted or reciprocal-based variant apart: the cumulative
+moment tables cancel for narrow intervals far from the grid centre, so
+an ulp in G or in ``(x - xmin) / dx`` moves the result by up to a table
+step.
 JAX runs its Pallas kernel in interpret mode, as its own tests run it.
 """
 
@@ -34,6 +37,7 @@ from _k3_inputs import SEED1, f32_bits, k3_inputs
 F32 = np.float32
 TINY = F32(1e-30)
 
+
 @pytest.fixture(autouse=True)
 def _interpret(monkeypatch):
     monkeypatch.setattr(jax_tables, "INTERPRET", True)
@@ -42,14 +46,18 @@ def _interpret(monkeypatch):
 
 
 def k3_emulated(dist, u, x_lo, x_hi, sfact, contract=False,
-                reciprocal=False):
+                reciprocal=False, probe="compare"):
     """The kernel's float32 operations, element-wise.  Returns the
     result ``out``, the interval's grid cells ``i_lo``/``i_hi``, the
     upper index ``cell`` of the cell the result lies in, and ``norm``,
-    the normalised G at any cell.  ``contract`` fuses
-    ``a * b - c`` and the final ``x + a * b`` into one rounding (what nvcc does unless told not to);
-    ``reciprocal`` divides by ``dx`` and by ``denom`` through their
-    rounded reciprocals (what PyTorch does for a Python float)."""
+    the normalised G at any cell.  ``contract`` fuses ``a * b - c`` and
+    the final ``x + a * b`` into one rounding (what nvcc does unless told
+    not to); ``reciprocal`` divides by ``dx`` and by ``denom`` through their
+    rounded reciprocals (what PyTorch does for a Python float).  With
+    ``probe="compare"`` (the kernel) each bisection probe decides
+    ``fl(G / total) < u`` as ``G < total * m`` in float64, ``m`` the
+    rounding boundary below ``u``; ``probe="divide"`` divides, as the
+    plain version."""
     cells = dist.cells.numpy()
     N = cells.shape[0]
     xmin, dx, center = F32(dist.xmin), F32(dist.dx), F32(dist.center)
@@ -90,21 +98,31 @@ def k3_emulated(dist, u, x_lo, x_hi, sfact, contract=False,
         return np.where(degen & (j >= i_lo), F32(1), g)
 
     uu = np.maximum(u, TINY)
+    pu = np.nextafter(uu, F32(0))
+    lim = total.astype(np.float64) * (0.5 * (pu.astype(np.float64) + uu))
+
+    def is_below(j):
+        if probe == "divide":
+            return norm(j) < uu
+        b = np.where(j < i_lo, F32(0) < uu, raw(j).astype(np.float64) < lim)
+        return np.where((j >= i_hi) | (degen & (j >= i_lo)), F32(1) < uu, b)
+
     lo_j = np.zeros(u.shape, np.int64)
     hi_j = np.full(u.shape, N - 1)
     for _ in range(math.ceil(math.log2(N))):
         mid = (lo_j + hi_j) // 2
-        below = norm(mid) < uu
+        below = is_below(mid)
         lo_j = np.where(below, mid + 1, lo_j)
         hi_j = np.where(below, hi_j, mid)
     ih = np.clip(lo_j, 1, N - 1)
     y_lo = norm(ih - 1)
     q = div(dx, np.maximum(norm(ih) - y_lo, TINY))
     x_left = cells[ih - 1, 3]
-    if contract:
-        out = (x_left + (uu - y_lo).astype(np.float64) * q).astype(F32)
-    else:
-        out = x_left + (uu - y_lo) * q
+    with np.errstate(over="ignore"):   # inf where the plain gives inf
+        if contract:
+            out = (x_left + (uu - y_lo).astype(np.float64) * q).astype(F32)
+        else:
+            out = x_left + (uu - y_lo) * q
     assert out.dtype == F32
     return types.SimpleNamespace(out=out, i_lo=i_lo, i_hi=i_hi, cell=ih,
                                  norm=norm)
@@ -176,6 +194,31 @@ def test_k3_arithmetic_within_half_a_cell_of_jax(sfact):
     assert near.mean() > 0.97
     jax_paths_part = ~(np.abs(jnp_path - pallas) <= bar)
     assert (near | jax_paths_part).all()
+
+
+@pytest.mark.parametrize("kind", ["beta", "flat"])
+@pytest.mark.parametrize("sfact", [0, 1, 2])
+def test_the_division_free_probe_picks_the_dividing_probes_cell(kind,
+                                                                 sfact):
+    """The kernel's probe compares ``G`` with ``total * m`` in float64
+    instead of dividing: on the inputs, and with ``u`` set on each
+    element's own ``fl(G / total)`` at probed cells and one ulp either
+    side of it -- where the two could part if the comparison were not
+    exact -- every probe goes the same way."""
+    dist = _dist(kind)
+    u, x_lo, x_hi = _inputs(dist, seed=20 + sfact)
+    res = k3_emulated(dist, u, x_lo, x_hi, sfact, probe="divide")
+    on = np.concatenate([res.norm(res.cell), res.norm(res.cell - 1),
+                         res.norm((res.i_lo + res.i_hi) // 2)])
+    cases = [np.tile(a, 9) for a in (x_lo, x_hi)]
+    cases.insert(0, np.concatenate([
+        on, np.nextafter(on, F32(0)), np.nextafter(on, F32(2))]))
+    for args in ((u, x_lo, x_hi), cases):
+        divide = k3_emulated(dist, *args, sfact, probe="divide")
+        compare = k3_emulated(dist, *args, sfact)
+        np.testing.assert_array_equal(compare.cell, divide.cell)
+        np.testing.assert_array_equal(compare.out.view(np.uint32),
+                                      divide.out.view(np.uint32))
 
 
 def test_the_bar_tells_contracted_and_reciprocal_arithmetic_apart():
