@@ -37,7 +37,19 @@ Phases, in order; any failure exits non-zero:
                two-component pixels and not on the others.
 7. n2h+ ladder  -- the same on a seeded two-component N2H+ (1-0) cube
                (400 ch, noise 0.1).
-8. profile  -- only with ``--profile N``: the NH3 rung of ncomp N again
+8. cube     -- the cube pipeline through ``CubeFitter`` at its production
+               defaults (SNR buckets, batch 1024, mode-loss retry,
+               boundary pass): (a) the committed fixture cutouts
+               (``tests/data``: 20x20 px, 379 ch, RMS 0.35 K, NaN corners,
+               primary-beam noise map) read by the port's ``read_fits``
+               and ``DataCube.from_fits``; (b) the synthetic NH3 cube of
+               phase *ladder* (1024 px) laid out as a DataCube pair.  The fitter's batch method hands back
+               host records (no ``h5py`` on the card); the gates hold
+               them to the fixture's truth, the ladder decision, the
+               evidence floor and the boundary refits.  Walls per bucket,
+               batch and rung, launches, retry and boundary rows, and the
+               peak device memory are printed.
+9. profile  -- only with ``--profile N``: the NH3 rung of ncomp N again
                under ``torch.profiler``: device time by kernel, busy
                share.
 
@@ -51,6 +63,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -66,6 +79,14 @@ K1_COMPACT_ROWS = 64     # NSConfig.min_compact: the narrowest K1 launch
 # K3's launch widths T x R on the ladders: the compacted slice round,
 # the NH3/N2H+ and the Gaussian candidate rounds
 K3_WIDTHS = (50 * 64, 50 * 1024, 100 * 1024)
+# phase cube: the committed cutouts and their bright pixels and bars
+# (tests/test_fixture_cubes.py)
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data"
+FIXTURE_RMS = 0.35
+BRIGHT = [(10, 10), (9, 10), (10, 9), (11, 10)]        # (i_lon, i_lat)
+VOFF_BAR, SIGM_BAR = 0.15, 0.25
+NBEST2_SHARE = 0.05      # the fixture's truth has one component
+CUBE_PIXELS = 1024       # the synthetic cube of phase cube, 32 x 32
 
 
 def fail(msg):
@@ -666,6 +687,235 @@ def phase_n2hp_ladder(seed, n_pix, counters):
     return launches
 
 
+def ladder_decision(recs, thresh):
+    """``nbest`` from a pixel's records ``{ncomp: attrs}``: the largest N
+    whose every rung up to N gained at least ``thresh`` over the one
+    before (``null_lnZ`` for N = 1), in the fitter's float32."""
+    nbest, prev = 0, None
+    for n in sorted(recs):
+        lnz = np.float32(recs[n]["global_lnZ"])
+        base = np.float32(recs[n]["null_lnZ"]) if n == 1 else prev
+        if not lnz - base >= thresh:
+            break
+        nbest, prev = n, lnz
+    return nbest
+
+
+def run_cube(label, fitter, seed, counters):
+    """Drive ``fitter._fit_batches`` over every valid pixel with the launch
+    counters at 0, printing each batch and rung as it comes.  Returns
+    ``(batches, launches, wall, peak bytes per batch)``."""
+    import torch
+
+    fit_rung = fitter._fit_rung
+
+    def counted_rung(*args, **kwargs):
+        before = {k: fn.launches for k, fn in counters.items()}
+        out = fit_rung(*args, **kwargs)
+        out[3]["launches"] = {k: fn.launches - before[k]
+                              for k, fn in counters.items()}
+        return out
+
+    fitter._fit_rung = counted_rung
+    batches, peaks = [], []
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in fitter._fit_batches(seed):
+        peaks.append(torch.cuda.max_memory_allocated())
+        batches.append(batch)
+        print(f"{label} batch {batch.chunk}: nlive {batch.nlive}, R "
+              f"{batch.pixel_ix.size}, padded R {batch.rungs[0]['r_pad']}, "
+              f"{batch.attempts} attempt(s), peak device memory "
+              f"{peaks[-1] / 2**30:.3f} GiB", flush=True)
+        for r in batch.rungs:
+            print(f"  rung ncomp={r['ncomp']} R={r['R']} (pad {r['r_pad']}): "
+                  f"first pass {r['wall']:.2f} s, with retry and boundary "
+                  f"{r['total_wall']:.2f} s, evals/px "
+                  f"{r['evals_per_px']:.1f}, converged {r['converged']}/"
+                  f"{r['R']}, kernels {json.dumps(r['launches'])}",
+                  flush=True)
+            for a in r["retries"]:
+                print(f"    mode-loss attempt {a['attempt']}: {a['rows']} rows "
+                      f"(pad {a['r_pad']}) at nlive {a['nlive']}, "
+                      f"{a['replaced']} records replaced, {a['wall']:.2f} s",
+                      flush=True)
+            print(f"    below the floor by > {fitter.mode_loss_margin:g} nats: "
+                  f"{r['bad_before']} before the retry, {r['bad_after']} "
+                  "after", flush=True)
+            b = r["boundary"]
+            if b is not None:
+                print(f"    boundary pass: {b['rows']} rows (pad {b['r_pad']}) "
+                      f"at nlive {b['nlive']}, {b['replaced']} records "
+                      f"replaced, {b['wall']:.2f} s", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fitter._fit_rung = fit_rung
+    rungs = [r for b in batches for r in b.rungs]
+    t_retry = sum(a["wall"] for r in rungs for a in r["retries"])
+    t_band = sum(r["boundary"]["wall"] for r in rungs if r["boundary"])
+    print(f"{label}: wall {wall:.2f} s over {len(batches)} batches "
+          f"({sum(r['wall'] for r in rungs):.2f} s first passes, mode-loss "
+          f"retry {t_retry:.2f} s = {100 * t_retry / wall:.1f}%, boundary "
+          f"pass {t_band:.2f} s = {100 * t_band / wall:.1f}%), peak device "
+          f"memory {max(peaks) / 2**30:.3f} GiB, kernels "
+          f"{json.dumps(launches)}", flush=True)
+    return batches, launches, wall, peaks
+
+
+def check_refits(label, fitter, batch, rung, recs):
+    """The records of one rung hold every merged refit: each row a
+    mode-loss attempt or the boundary pass replaced carries the lnZ of
+    the last refit that replaced it, and no row the retry replaced (and
+    the boundary pass did not) still shows the lnZ it had before; rows
+    of the rung's records below the evidence floor (the previous rung's
+    record, ``null_lnZ`` on rung 1, less the margin) number no more
+    than the fitter found before the retry."""
+    n = rung["ncomp"]
+    want, before = {}, {}
+    for a in rung["retries"]:
+        for p, z, z0 in zip(a["pixels"].tolist(), a["lnz"].tolist(),
+                            a["old_lnz"].tolist()):
+            want[p] = z
+            before.setdefault(p, z0)
+    band = set()
+    if rung["boundary"] is not None:
+        bd = rung["boundary"]
+        band = set(bd["pixels"].tolist())
+        want.update(zip(bd["pixels"].tolist(), bd["lnz"].tolist()))
+    wrong = [p for p, z in want.items() if recs[p][n]["global_lnZ"] != z]
+    stale = [p for p, z0 in before.items()
+             if p not in band and recs[p][n]["global_lnZ"] == z0]
+    if wrong or stale:
+        fail(f"{label} batch {batch.chunk} rung {n}: the records of "
+             f"re-fitted pixels {wrong[:8]} do not hold their refit's lnZ, "
+             f"of {stale[:8]} still hold the first pass's")
+    rows = [p for p in batch.pixel_ix.tolist() if n in recs[p]]
+    prev = np.array([recs[p][n - 1]["global_lnZ"] if n > 1 else
+                     recs[p][n]["null_lnZ"] for p in rows], np.float32)
+    lnz = np.array([recs[p][n]["global_lnZ"] for p in rows], np.float32)
+    below = int((lnz < prev - np.float32(fitter.mode_loss_margin)).sum())
+    if below > rung["bad_before"]:
+        fail(f"{label} batch {batch.chunk} rung {n}: {below} records below "
+             f"the evidence floor, {rung['bad_before']} before the retry")
+    return len(want)
+
+
+def check_cube(label, fitter, batches, valid_ix):
+    """Gates both cube cases share; returns ``{pixel: {ncomp: attrs}}``
+    and ``{pixel: nbest}``.  Every batch ran its ladder once (no run
+    raised); every valid pixel has a rung-1 record with a finite lnZ and
+    no other pixel has any; every lnZ is finite; ``nbest`` is the ladder
+    decision recomputed from the records; the records hold every merged
+    refit (``check_refits``); K1 and K2 launched on every rung, K3 on
+    rung 2, K4 never."""
+    recs, nbest = {}, {}
+    for b in batches:
+        if b.attempts != 1:
+            fail(f"{label} batch {b.chunk}: {b.attempts} attempts (a ladder "
+                 "run raised and the batch was re-run)")
+        nbest.update(zip(b.pixel_ix.tolist(), b.nbest.tolist()))
+        for pix, ncomp, (attrs, dsets) in b.records:
+            recs.setdefault(pix, {})[ncomp] = dict(attrs, **dsets)
+    if set(recs) != set(valid_ix.tolist()) or \
+            any(1 not in r for r in recs.values()):
+        fail(f"{label}: records for {len(recs)} pixels, "
+             f"{len(set(recs) - set(valid_ix.tolist()))} of them not valid; "
+             f"{valid_ix.size} valid pixels")
+    lnz = np.array([a["global_lnZ"] for r in recs.values()
+                    for a in r.values()])
+    if not np.isfinite(lnz).all():
+        fail(f"{label}: {int((~np.isfinite(lnz)).sum())} non-finite lnZ")
+    bad = [p for p, r in recs.items()
+           if ladder_decision(r, fitter.lnZ_thresh) != nbest[p]]
+    if bad:
+        fail(f"{label}: nbest is not the ladder decision on pixels {bad[:8]}")
+    n_refit = 0
+    for b in batches:
+        for r in b.rungs:
+            n_refit += check_refits(label, fitter, b, r, recs)
+            need = ["hf_chi2_fused", "table_lerp"] + (
+                ["tapered_invert"] if r["ncomp"] == 2 else [])
+            if any(r["launches"][k] <= 0 for k in need) or \
+                    r["launches"]["gauss_chi2_fused"]:
+                fail(f"{label} rung {r['ncomp']}: kernels "
+                     f"{r['launches']}, need {need} and no K4")
+    hist = np.bincount(list(nbest.values()), minlength=fitter.ncomp_max + 1)
+    print(f"{label}: nbest histogram {hist.tolist()} over {len(nbest)} "
+          f"pixels; {n_refit} re-fitted rows checked in their records; "
+          "every gate on the records passed", flush=True)
+    return recs, nbest, hist
+
+
+def phase_cube(seed, n_pix, counters):
+    """The cube pipeline at ``CubeFitter``'s production defaults on the
+    fixture cutouts and on the synthetic NH3 cube.  Returns the launches
+    of the two cases."""
+    from nestfit_tpu_torch.cube import CubeFitter, CubeStack, DataCube, \
+        NoiseMap, read_fits
+    from nestfit_tpu_torch.models import AmmoniaRunner
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    # (a) the committed cutouts, through the port's FITS reader
+    pb, _ = read_fits(FIXTURES / "pb_cutout.fits")
+    nmap = NoiseMap.from_pbimg(FIXTURE_RMS, pb)
+    stack = CubeStack([
+        DataCube.from_fits(FIXTURES / f"nh3_{tag}_cutout.fits",
+                           noise_map=nmap, trans_id=tid)
+        for tid, tag in ((1, "11"), (2, "22"))])
+    truth, _ = read_fits(FIXTURES / "truth_params.fits")      # [5, b, l]
+    fitter = CubeFitter(stack, get_irdc_priors(vsys=0.0, device="cuda"),
+                        AmmoniaRunner)
+    _, _, nan_mask, _ = stack.get_flat_batch()
+    valid_ix = np.flatnonzero(~nan_mask)
+    print(f"cube fixture: {stack.spatial_shape[0]}x{stack.spatial_shape[1]} "
+          f"px, {stack.cubes[0].nchan} ch, {valid_ix.size} valid", flush=True)
+    batches, launches_a, _, _ = run_cube("cube fixture", fitter, seed,
+                                         counters)
+    recs, nbest, hist = check_cube("cube fixture", fitter, batches, valid_ix)
+    n_lat = stack.spatial_shape[1]
+    for il, ib in BRIGHT:
+        pix = il * n_lat + ib
+        best = recs[pix][1]["bestfit_params"]
+        dv = abs(best[0] - truth[0, ib, il])
+        ds = abs(best[4] - truth[4, ib, il])
+        print(f"cube fixture: pixel ({il}, {ib}) nbest {nbest[pix]}, voff "
+              f"{best[0]:.4f} (truth {truth[0, ib, il]:.4f}), sigm "
+              f"{best[4]:.4f} (truth {truth[4, ib, il]:.4f})", flush=True)
+        if nbest[pix] < 1 or not (dv < VOFF_BAR and ds < SIGM_BAR):
+            fail(f"cube fixture: bright pixel ({il}, {ib}) off its truth")
+    if hist[2:].sum() > NBEST2_SHARE * valid_ix.size:
+        fail(f"cube fixture: nbest 2 on {int(hist[2:].sum())} of "
+             f"{valid_ix.size} pixels of a one-component truth")
+
+    # (b) the synthetic NH3 cube of phase ladder as a DataCube pair
+    noise = 0.15
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
+    shape = (n_pix // 32, 32)
+    stack = CubeStack([
+        DataCube(d.reshape(*shape, -1), xa, noise_map=noise, trans_id=tid)
+        for tid, xa, d in ((1, xa11, d11), (2, xa22, d22))])
+    fitter = CubeFitter(stack, get_irdc_priors(device="cuda"), AmmoniaRunner)
+    print(f"cube synth: {shape[0]}x{shape[1]} px, {stack.cubes[0].nchan} ch",
+          flush=True)
+    batches, launches_b, _, _ = run_cube("cube synth", fitter, seed, counters)
+    check_cube("cube synth", fitter, batches, np.arange(n_pix))
+    for b in batches:
+        for r in b.rungs:
+            if r["converged"] < CONVERGED_SHARE * r["R"] or \
+                    r["unconverged_short"]:
+                fail(f"cube synth batch {b.chunk} rung {r['ncomp']}: "
+                     f"{r['R'] - r['converged']} of {r['R']} first-pass runs "
+                     f"not converged, {r['unconverged_short']} of them short "
+                     "of the death budget")
+    return [launches_a, launches_b]
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler``: device time by kernel and the
     device's busy share of the rung wall (the profiler's own host cost
@@ -742,6 +992,7 @@ def main():
                                        "spill")):
                 print(f"  {src}: {line.strip()}", flush=True)
 
+    t_start = time.perf_counter()
     records = phase_kernels(args.seed, n_sm, clock_hz)
     phase_forward(args.seed)
     phase_forward(args.seed + 1)
@@ -749,15 +1000,20 @@ def main():
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
-    ladders = [phase_ladder(args.seed, args.pixels, counters),
-               phase_gauss_ladder(args.seed, args.pixels, counters),
-               phase_n2hp_ladder(args.seed, args.pixels, counters)]
+    # launches on the main paths: every rung of the three ladders and
+    # both cases of the cube phase
+    runs = []
+    for phase in (phase_ladder, phase_gauss_ladder, phase_n2hp_ladder):
+        runs += list(phase(args.seed, args.pixels, counters).values())
+    t0 = time.perf_counter()
+    runs += phase_cube(args.seed, CUBE_PIXELS, counters)
+    print(f"phase cube: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
+          "build", flush=True)
 
-    # launches on the main paths: every rung of the three ladders
-    launches = {k: sum(rung[k] for lad in ladders for rung in lad.values())
-                for k in counters}
+    launches = {k: sum(run[k] for run in runs) for k in counters}
     kernels = [dict(records[k], launches=launches[k]) for k in counters]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

@@ -17,6 +17,8 @@ import torch
 from nestfit_tpu_torch.device import resolve_device
 from nestfit_tpu_torch.models.spectrum import Spectrum
 from nestfit_tpu_torch.priors.distributions import Distribution
+from nestfit_tpu_torch.sampling.fit import FitResult
+from nestfit_tpu_torch.sampling.results import PosteriorProducts
 from nestfit_tpu_torch.sampling.sampler import NSResult, _State
 
 
@@ -63,3 +65,20 @@ def result_from_dict(fields: dict, device="cuda") -> NSResult:
     """``NSResult`` from the fields of ``nestfit_tpu.sampling.sampler.
     NSResult``."""
     return NSResult(**_build(NSResult, fields, device))
+
+
+def fit_result_from_dict(fields: dict, device="cuda") -> FitResult:
+    """``FitResult`` from the fields of ``nestfit_tpu.sampling.fit.
+    FitResult``: ``ns`` and ``products`` are dicts of their own
+    dataclasses' fields, ``ics`` a dict of arrays."""
+    device = resolve_device(device)
+    return FitResult(
+        ns=result_from_dict(fields["ns"], device),
+        products=PosteriorProducts(
+            **_build(PosteriorProducts, fields["products"], device)),
+        null_lnz=_tensor(fields["null_lnz"], device),
+        ics={k: _tensor(v, device) for k, v in fields["ics"].items()},
+        ncomp=int(fields["ncomp"]),
+        n_params=int(fields["n_params"]),
+        n_chan_tot=int(fields["n_chan_tot"]),
+    )

@@ -1,0 +1,23 @@
+"""Cube layer (port of ``nestfit_tpu/cube``): FITS cubes, the cube stack,
+the batched ``CubeFitter`` ladder and the chunked HDF5 store.
+
+``HdfStore`` is resolved on first use: it is the only name that needs
+``h5py``, so the rest imports and runs without it.
+"""
+
+from nestfit_tpu_torch.cube.cube import (
+    CubeStack,
+    DataCube,
+    NoiseMap,
+    NoiseMapUniform,
+)
+from nestfit_tpu_torch.cube.fits_io import read_fits, write_fits
+from nestfit_tpu_torch.cube.fitter import CubeFitter
+
+
+def __getattr__(name):
+    if name == "HdfStore":
+        from nestfit_tpu_torch.cube.store import HdfStore
+
+        return HdfStore
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,4 +1,10 @@
-from nestfit_tpu_torch.sampling.fit import FitResult, fit_batch
+from nestfit_tpu_torch.sampling.fit import (
+    FitResult,
+    align_fit_meta,
+    fit_batch,
+    fit_single,
+    merge_fit_rows,
+)
 from nestfit_tpu_torch.sampling.results import (
     MARGINAL_COLS,
     QUANTILES,

@@ -1,9 +1,10 @@
 """Fit orchestration: runner + nested sampler + posterior products
-(port of ``FitResult`` and the segmented ``fit_batch`` of
-``nestfit_tpu/sampling/fit.py``)."""
+(port of ``FitResult``, the segmented ``fit_batch``, ``align_fit_meta``,
+``merge_fit_rows`` and ``fit_single`` of ``nestfit_tpu/sampling/fit.py``)."""
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from nestfit_tpu_torch.device import resolve_device
@@ -91,3 +92,81 @@ def fit_batch(
         n_params=runner.n_params,
         n_chan_tot=runner.n_chan_tot,
     )
+
+
+def align_fit_meta(fit_b: FitResult, like: FitResult) -> FitResult:
+    """``fit_b`` with its NSResult metadata (nlive, ndim, max_iter) set to
+    ``like``'s, so that ``merge_fit_rows`` can merge the two.
+
+    Used where a re-fit ran at a higher ``nlive`` with the base run's
+    ``max_iter``: live-point arrays whose length disagrees are truncated
+    to ``like``'s (their rows become an arbitrary subset -- harmless, the
+    posterior products were computed from the full set inside
+    ``fit_batch``, and the store keeps only those and scalar attributes).
+    ``n_samples`` of such rows then undercounts by the nlive difference.
+    """
+    ns_b, ns_a = fit_b.ns, like.ns
+    if (ns_b.nlive, ns_b.ndim, ns_b.max_iter) == (
+            ns_a.nlive, ns_a.ndim, ns_a.max_iter):
+        return fit_b
+    L = ns_a.nlive
+    ns_new = dataclasses.replace(
+        ns_b,
+        live_u=ns_b.live_u[:, :L],
+        live_lnl=ns_b.live_lnl[:, :L],
+        live_lnw=ns_b.live_lnw[:, :L],
+        dead_u=ns_b.dead_u[:, : ns_a.max_iter],
+        dead_lnl=ns_b.dead_lnl[:, : ns_a.max_iter],
+        dead_lnw=ns_b.dead_lnw[:, : ns_a.max_iter],
+        nlive=ns_a.nlive,
+        ndim=ns_a.ndim,
+        max_iter=ns_a.max_iter,
+    )
+    return dataclasses.replace(fit_b, ns=ns_new)
+
+
+def merge_fit_rows(fit_a: FitResult, fit_b: FitResult, dst_rows,
+                   src_rows, n_rows_a: int, n_rows_b: int) -> FitResult:
+    """``fit_a`` with its run rows ``dst_rows`` replaced by rows
+    ``src_rows`` of ``fit_b``, leaf by leaf, on the device.
+
+    A tensor leaf is merged when its leading axis is ``n_rows_a`` in
+    ``fit_a`` and ``n_rows_b`` in ``fit_b`` and the trailing shapes agree;
+    any other leaf passes through from ``fit_a``.  Merged leaves are
+    clones, so ``fit_a`` is left unchanged.  Metadata (nlive, ndim,
+    max_iter, ncomp, ...) must agree: call ``align_fit_meta`` first.
+    """
+    dev = fit_a.lnz.device
+    dst = torch.as_tensor(np.asarray(dst_rows, dtype=np.int64), device=dev)
+    src = torch.as_tensor(np.asarray(src_rows, dtype=np.int64), device=dev)
+
+    def mg(a, b):
+        if isinstance(a, torch.Tensor):
+            if (a.ndim >= 1 and a.shape[0] == n_rows_a and b.ndim >= 1
+                    and b.shape[0] == n_rows_b
+                    and a.shape[1:] == b.shape[1:]):
+                out = a.clone()
+                out[dst] = b[src]
+                return out
+            return a
+        if isinstance(a, dict):
+            return {k: mg(a[k], b[k]) for k in a}
+        if dataclasses.is_dataclass(a):
+            return dataclasses.replace(a, **{
+                f.name: mg(getattr(a, f.name), getattr(b, f.name))
+                for f in dataclasses.fields(a)})
+        if a != b:
+            raise ValueError(f"merge_fit_rows: metadata differ ({a!r} and "
+                             f"{b!r}); align_fit_meta the fits first")
+        return a
+
+    return mg(fit_a, fit_b)
+
+
+def fit_single(gen: torch.Generator, runner: Runner,
+               config: NSConfig = NSConfig(nlive=400, tol=0.5),
+               n_post: int = 0, dtype=torch.float32,
+               device="cuda") -> FitResult:
+    """Fit one spectrum (single-fit defaults nlive 400, tol 0.5)."""
+    return fit_batch(gen, runner, 1, config, n_post=n_post, dtype=dtype,
+                     device=device)

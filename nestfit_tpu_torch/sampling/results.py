@@ -89,17 +89,44 @@ def _weighted_quantiles(theta, lnp, qs):
     return _interp(x, cw.contiguous(), ts)
 
 
+# bytes of points (``(max_iter + nlive) x D`` per run) the posterior
+# products take in one pass; their temporaries peak at ~12x this
+# (``tools/cube_memory.py``), so wider batches go in row slices
+_PRODUCTS_BYTES = 2**30
+
+
 def posterior_products(result: NSResult, transform, gen: torch.Generator,
                        n_post: int = 512,
                        quantiles=QUANTILES) -> PosteriorProducts:
     """Posterior summaries for every run: weighted marginal quantiles,
     equal-weight samples by systematic resampling (jitter from ``gen``),
     the best-fit (max-lnL) and MAP (max posterior mass) samples, and the
-    posterior mean and standard deviation."""
+    posterior mean and standard deviation.  Runs go in row slices of at
+    most ``_PRODUCTS_BYTES`` of points, so the peak memory stays bounded
+    at any batch width and live-point count."""
     R = result.lnz.shape[0]
-    u_all = torch.cat([result.dead_u, result.live_u], dim=1)
-    lnl_all = torch.cat([result.dead_lnl, result.live_lnl], dim=1)
-    lnw_all = torch.cat([result.dead_lnw, result.live_lnw], dim=1)
+    jitter = torch.rand((R, 1), generator=gen, device=result.lnz.device,
+                        dtype=result.dead_lnl.dtype)
+    n_pts = result.dead_u.shape[1] + result.live_u.shape[1]
+    row_bytes = n_pts * result.dead_u.shape[2] * result.dead_u.element_size()
+    step = max(1, _PRODUCTS_BYTES // row_bytes)
+    parts = [_products_rows(result, slice(lo, lo + step), transform,
+                            jitter[lo:lo + step], n_post, quantiles)
+             for lo in range(0, max(R, 1), step)]
+    if len(parts) == 1:
+        return parts[0]
+    return PosteriorProducts(*(
+        torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(PosteriorProducts)))
+
+
+def _products_rows(result, rows, transform, jitter, n_post, quantiles):
+    """``posterior_products`` of the runs ``rows`` (a slice)."""
+    u_all = torch.cat([result.dead_u[rows], result.live_u[rows]], dim=1)
+    lnl_all = torch.cat([result.dead_lnl[rows], result.live_lnl[rows]],
+                        dim=1)
+    lnw_all = torch.cat([result.dead_lnw[rows], result.live_lnw[rows]],
+                        dim=1)
     lnp = torch.where(lnl_all > _NEG / 2, lnw_all + lnl_all, _NEG)
     lnp = lnp - torch.logsumexp(lnp, dim=1, keepdim=True)
 
@@ -115,8 +142,6 @@ def posterior_products(result: NSResult, transform, gen: torch.Generator,
 
     w = torch.exp(lnp)
     cw = torch.cumsum(w, dim=1)
-    jitter = torch.rand((R, 1), generator=gen, device=w.device,
-                        dtype=w.dtype)
     pos = (torch.arange(n_post, dtype=w.dtype, device=w.device)[None, :]
            + jitter) / n_post
     take = torch.clamp(torch.searchsorted(cw.contiguous(), pos), 0,

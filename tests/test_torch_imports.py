@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``nestfit_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of ``nestfit_tpu``, and
-importing them builds no kernel."""
+importing them builds no kernel.  Only ``nestfit_tpu_torch.cube.store``
+needs ``h5py``."""
 
 import pkgutil
 import subprocess
@@ -16,6 +17,9 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     mods = sorted(m.name for m in pkgutil.walk_packages(
         nestfit_tpu_torch.__path__, "nestfit_tpu_torch."))
     assert "nestfit_tpu_torch.sampling.sampler" in mods
+    for m in ("cube", "cube.cube", "cube.fits_io", "cube.fitter",
+              "cube.records", "cube.store"):
+        assert f"nestfit_tpu_torch.{m}" in mods, m
     build = ROOT / "nestfit_tpu_torch" / "_build"
     before = sorted(build.glob("*")) if build.exists() else []
     code = "\n".join(
@@ -41,3 +45,23 @@ def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_only_the_store_needs_h5py():
+    mods = sorted(m.name for m in pkgutil.walk_packages(
+        nestfit_tpu_torch.__path__, "nestfit_tpu_torch."))
+    code = "\n".join(
+        ["import importlib, runpy, sys", "sys.modules['h5py'] = None",
+         "failed = []",
+         f"for m in {mods!r}:",
+         "    try:",
+         "        importlib.import_module(m)",
+         "    except ImportError:",
+         "        failed.append(m)",
+         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')",
+         "import nestfit_tpu_torch as ntt",
+         "assert ntt.DataCube is ntt.cube.DataCube",
+         "print(failed); assert failed == ['nestfit_tpu_torch.cube.store']"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -131,6 +131,30 @@ def test_finalize_and_posterior_products_match_jax():
                                    rtol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("rows_per_slice", [1, 3])
+def test_posterior_products_in_row_slices(monkeypatch, rows_per_slice):
+    """A batch too wide for one pass goes through the posterior products
+    in row slices: the same products, bit for bit, as one pass."""
+    jst, cfg = _jax_state()
+    pr = ts.ns_finalize(
+        convert.state_from_dict(_state_dict(jst), torch.Generator()),
+        _port_cfg(cfg))
+
+    def products():
+        return tres.posterior_products(pr, lambda u: 4.0 * u - 1.0,
+                                       torch.Generator().manual_seed(3),
+                                       n_post=64)
+
+    whole = products()
+    row_bytes = (pr.dead_u.shape[1] + pr.live_u.shape[1]) \
+        * pr.dead_u.shape[2] * pr.dead_u.element_size()
+    monkeypatch.setattr(tres, "_PRODUCTS_BYTES", rows_per_slice * row_bytes)
+    sliced = products()
+    for f in dataclasses.fields(whole):
+        assert torch.equal(getattr(sliced, f.name), getattr(whole, f.name)), \
+            f.name
+
+
 def test_kill_record_and_termination_match_jax():
     jst, cfg = _jax_state(iters=3)
     # every run ready for a kill
