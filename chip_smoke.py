@@ -37,7 +37,23 @@ Phases, in order; any failure exits non-zero:
                two-component pixels and not on the others.
 7. n2h+ ladder  -- the same on a seeded two-component N2H+ (1-0) cube
                (400 ch, noise 0.1).
-8. cube     -- the cube pipeline through ``CubeFitter`` at its production
+8. traced   -- the traced sampler (``segment_iters=0``): every block of
+               candidate iterations and slice fill a replayed CUDA graph.
+               (a) Graph against the eager block loop from the same
+               generator state, 64 px of the NH3 ladder cube, rungs 1 and
+               2, and a second graph run on the first one's kept graphs:
+               lnZ, n_dead, max lnL and calls bit for bit; (b) both
+               rungs at 1024 px under the ladder's gates, each pixel's
+               lnZ held against phase *ladder*'s (median difference
+               within two median combined errors); (c) a 64-px rung 1 with
+               each knob (``efr``, ``ceff``, ``log_zero``, ``pwrap_dims``)
+               and a 64-px Gaussian rung 2 (K4 in the graph), each under
+               the same gates; (d) ``posterior_modes`` of the 1024-px rung
+               2, a finite mode on every pixel.  Walls, replays, host
+               reads of the done mask, blocks with < 10% of the rows
+               active, launches (per captured block times replays) and
+               peak memory are printed.
+9. cube     -- the cube pipeline through ``CubeFitter`` at its production
                defaults (SNR buckets, batch 1024, mode-loss retry,
                boundary pass): (a) the committed fixture cutouts
                (``tests/data``: 20x20 px, 379 ch, RMS 0.35 K, NaN corners,
@@ -49,9 +65,9 @@ Phases, in order; any failure exits non-zero:
                evidence floor and the boundary refits.  Walls per bucket,
                batch and rung, launches, retry and boundary rows, and the
                peak device memory are printed.
-9. profile  -- only with ``--profile N``: the NH3 rung of ncomp N again
-               under ``torch.profiler``: device time by kernel, busy
-               share.
+10. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
+               segmented and traced, under ``torch.profiler``: device time
+               by kernel, busy share.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -87,6 +103,8 @@ BRIGHT = [(10, 10), (9, 10), (10, 9), (11, 10)]        # (i_lon, i_lat)
 VOFF_BAR, SIGM_BAR = 0.15, 0.25
 NBEST2_SHARE = 0.05      # the fixture's truth has one component
 CUBE_PIXELS = 1024       # the synthetic cube of phase cube, 32 x 32
+TRACED_PIXELS = 1024     # phase traced at full width
+GRAPH_PIXELS = 64        # phase traced's graph-vs-eager and knob runs
 
 
 def fail(msg):
@@ -558,67 +576,96 @@ def phase_forward(seed):
                     runner.loglike_unit(u, plain=True), atol=5e-2)
 
 
-def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
-    """``fit_batch`` rungs ncomp 1 then 2 on ``runner_for(ncomp)``.  Each
-    rung starts with every launch counter at 0; after it, the kernels in
-    ``need`` (and K3 on rung 2) must have risen and those in ``idle``
-    stayed at 0.  Returns ``(lnz by ncomp, launches by ncomp)``."""
+def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
+             segment_iters=250):
+    """One ``fit_batch`` rung with every launch counter at 0 before it.
+    Prints its wall, calls, convergence and launches (and, traced, its
+    blocks, graph replays, done-mask reads, straggler blocks and peak
+    memory); fails on a non-finite lnZ or posterior sample, on fewer
+    than 98% converged runs or a stalled one, if a kernel in ``need``
+    was never launched or one in ``idle`` was, or if a traced rung did
+    not run as CUDA graphs.  Returns ``(fit, launches)``."""
     import torch
-    from nestfit_tpu_torch.sampling import NSConfig, fit_batch
+    from nestfit_tpu_torch.sampling import fit_batch, graphs
 
-    cfg = NSConfig(**LADDER)
-    lnz, launches = {}, {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(gen_seed)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fit = fit_batch(gen, runner, n_pix, cfg, segment_iters=segment_iters,
+                    device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    z = fit.lnz.cpu().numpy()
+    ncall = fit.ns.ncall.cpu().numpy().astype(np.int64)
+    conv = fit.ns.converged.cpu().numpy()
+    traced = ""
+    if segment_iters == 0:
+        st = graphs.last_stats
+        traced = (f"{st.blocks} blocks ({st.replays} graph replays, "
+                  f"{st.captures} captures), {st.done_reads} host reads of "
+                  f"the done mask, {st.straggler_blocks} blocks with < 10% "
+                  "of the rows active, peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ")
+    print(f"{label}: wall {wall:.2f} s, {traced}evals/px {ncall.mean():.1f}, "
+          f"converged {int(conv.sum())}/{n_pix}, lnZ median "
+          f"{np.median(z):.3f}, kernels {json.dumps(launches)}", flush=True)
+    # the reference's own gate (bench.py: converged share >= 0.98),
+    # and a run may miss the tolerance only by spending its whole
+    # death budget (a very bright pixel); a stalled run fails
+    n_dead = fit.ns.n_dead.cpu().numpy()
+    for p in np.flatnonzero(~conv)[:8]:
+        print(f"  not converged: pixel {p}, deaths {n_dead[p]} of "
+              f"{fit.ns.max_iter}, evals {ncall[p]}, lnZ {z[p]:.3f} +- "
+              f"{float(fit.ns.lnz_err[p]):.3f}, max lnL "
+              f"{float(fit.ns.max_loglike[p]):.3f}", flush=True)
+    if conv.mean() < CONVERGED_SHARE or \
+            (n_dead[~conv] < fit.ns.max_iter).any():
+        fail(f"{label}: {int((~conv).sum())} runs not converged "
+             f"({int((n_dead[~conv] < fit.ns.max_iter).sum())} of them short "
+             "of the death budget)")
+    if not np.isfinite(z).all():
+        fail(f"{label}: non-finite lnZ")
+    post = fit.products.posteriors
+    if not bool(torch.isfinite(post).all()) or post.shape[0] != n_pix:
+        fail(f"{label}: bad posterior samples")
+    for k in need:
+        if launches[k] <= 0:
+            fail(f"{label}: kernel {k} never launched")
+    for k in idle:
+        if launches[k] != 0:
+            fail(f"{label}: kernel {k} launched {launches[k]} times off its "
+                 "path")
+    if segment_iters == 0 and (st.replays == 0 or st.captures == 0):
+        fail(f"{label}: the traced blocks did not run as CUDA graphs")
+    return fit, launches
+
+
+def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
+    """``fit_batch`` rungs ncomp 1 then 2 on ``runner_for(ncomp)``
+    (:func:`run_rung`); the kernels in ``need`` (and K3 on rung 2) must
+    have risen and those in ``idle`` stayed at 0.  Returns ``(lnz by
+    ncomp, launches by ncomp, lnz errors by ncomp)``."""
+    from nestfit_tpu_torch.sampling import NSConfig
+
+    lnz, launches, errs = {}, {}, {}
     for ncomp in (1, 2):
-        runner = runner_for(ncomp)
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(seed + ncomp)
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fit = fit_batch(gen, runner, n_pix, cfg, segment_iters=250,
-                        device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[ncomp] = {k: fn.launches for k, fn in counters.items()}
-        z = fit.lnz.cpu().numpy()
-        ncall = fit.ns.ncall.cpu().numpy().astype(np.int64)
-        conv = fit.ns.converged.cpu().numpy()
-        lnz[ncomp] = z
-        print(f"{label} rung ncomp={ncomp} R={n_pix}: wall {wall:.2f} s, "
-              f"evals/px {ncall.mean():.1f}, converged {int(conv.sum())}/"
-              f"{n_pix}, lnZ median {np.median(z):.3f}, kernels "
-              f"{json.dumps(launches[ncomp])}", flush=True)
-        # the reference's own gate (bench.py: converged share >= 0.98),
-        # and a run may miss the tolerance only by spending its whole
-        # death budget (a very bright pixel); a stalled run fails
-        n_dead = fit.ns.n_dead.cpu().numpy()
-        for p in np.flatnonzero(~conv)[:8]:
-            print(f"  not converged: pixel {p}, deaths {n_dead[p]} of "
-                  f"{fit.ns.max_iter}, evals {ncall[p]}, lnZ {z[p]:.3f} +- "
-                  f"{float(fit.ns.lnz_err[p]):.3f}, max lnL "
-                  f"{float(fit.ns.max_loglike[p]):.3f}", flush=True)
-        if conv.mean() < CONVERGED_SHARE or \
-                (n_dead[~conv] < fit.ns.max_iter).any():
-            fail(f"{label} rung {ncomp}: {int((~conv).sum())} runs not "
-                 f"converged ({int((n_dead[~conv] < fit.ns.max_iter).sum())}"
-                 " of them short of the death budget)")
-        if not np.isfinite(z).all():
-            fail(f"{label} rung {ncomp}: non-finite lnZ")
-        post = fit.products.posteriors
-        if not bool(torch.isfinite(post).all()) or post.shape[0] != n_pix:
-            fail(f"{label} rung {ncomp}: bad posterior samples")
-        for k in need + (["tapered_invert"] if ncomp == 2 else []):
-            if launches[ncomp][k] <= 0:
-                fail(f"{label} rung {ncomp}: kernel {k} never launched")
-        for k in idle:
-            if launches[ncomp][k] != 0:
-                fail(f"{label} rung {ncomp}: kernel {k} launched "
-                     f"{launches[ncomp][k]} times off its path")
-    return lnz, launches
+        fit, launches[ncomp] = run_rung(
+            f"{label} rung ncomp={ncomp} R={n_pix}", seed + ncomp,
+            runner_for(ncomp), n_pix, NSConfig(**LADDER), counters,
+            need + (["tapered_invert"] if ncomp == 2 else []), idle)
+        lnz[ncomp] = fit.lnz.cpu().numpy()
+        errs[ncomp] = fit.lnz_err.cpu().numpy()
+    return lnz, launches, errs
 
 
-def phase_ladder(seed, n_pix, counters):
+def phase_ladder(seed, n_pix, counters, keep=None):
+    """The NH3 ladder; ``keep`` receives its ``(lnz, lnz_err)`` by ncomp
+    for phase *traced*."""
     from nestfit_tpu_torch.priors import get_irdc_priors
     from nestfit_tpu_torch.synth import make_synth_cube_arrays
 
@@ -626,7 +673,7 @@ def phase_ladder(seed, n_pix, counters):
     (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
         n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
     utrans = get_irdc_priors(device="cuda")
-    lnz, launches = run_ladder(
+    lnz, launches, errs = run_ladder(
         "ladder", lambda ncomp: make_runner(
             (xa11, xa22), (d11, d22), noise, ncomp, utrans),
         n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
@@ -636,6 +683,8 @@ def phase_ladder(seed, n_pix, counters):
           f"{n_pix} two-component truth pixels", flush=True)
     if not np.median(gain) > 0:
         fail("ladder: median lnZ2 - lnZ1 is not positive")
+    if keep is not None:
+        keep.update({n: (lnz[n], errs[n]) for n in lnz})
     return launches
 
 
@@ -646,7 +695,7 @@ def phase_gauss_ladder(seed, n_pix, counters):
     xarr, rest, data, truth = gauss_cube(n_pix,
                                          np.random.default_rng(seed + 10))
     utrans = get_gaussian_priors(device="cuda")
-    lnz, launches = run_ladder(
+    lnz, launches, _ = run_ladder(
         "gauss ladder", lambda ncomp: make_gauss_runner(
             xarr, rest, data, ncomp, utrans),
         n_pix, seed, counters, ["gauss_chi2_fused", "table_lerp"],
@@ -674,7 +723,7 @@ def phase_n2hp_ladder(seed, n_pix, counters):
 
     xarr, data = n2hp_cube(n_pix, np.random.default_rng(seed + 20))
     utrans = get_diazenylium_priors(device="cuda")
-    lnz, launches = run_ladder(
+    lnz, launches, _ = run_ladder(
         "n2h+ ladder", lambda ncomp: make_n2hp_runner(
             [(1, xarr, data)], ncomp, utrans),
         n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
@@ -685,6 +734,141 @@ def phase_n2hp_ladder(seed, n_pix, counters):
     if not np.median(gain) > 0:
         fail("n2h+ ladder: median lnZ2 - lnZ1 is not positive")
     return launches
+
+
+def phase_traced(seed, counters, ladder):
+    """The traced mode (``segment_iters=0``): blocks of candidate
+    iterations and a slice fill, each a replayed CUDA graph.  (a) Graph
+    against eager on the first 64 pixels of the NH3 ladder cube, rungs 1
+    and 2, bit for bit; (b) both rungs at full width (1024 px) under the
+    ladder's gates, each pixel's lnZ held against phase *ladder*'s
+    segmented lnZ; (c) one 64-px rung 1 per sampler knob and a 64-px
+    Gaussian rung 2 (K4 in the graph); (d) ``posterior_modes`` of the
+    full-width rung 2.  Returns the launches of (b) and (c)."""
+    import torch
+    from nestfit_tpu_torch.priors import get_gaussian_priors, get_irdc_priors
+    from nestfit_tpu_torch.sampling import NSConfig, graphs, posterior_modes
+    from nestfit_tpu_torch.sampling import sampler as ts
+    from nestfit_tpu_torch.sampling.fit import _loglike2_for
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    noise, n_pix, n_small = 0.15, TRACED_PIXELS, GRAPH_PIXELS
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
+    utrans = get_irdc_priors(device="cuda")
+
+    def nh3(ncomp, rows):
+        return make_runner((xa11, xa22), (d11[:rows], d22[:rows]), noise,
+                           ncomp, utrans)
+
+    def config(ncomp, **kw):
+        return NSConfig(**LADDER, flat_dims=tuple(utrans.flat_dims(ncomp)),
+                        **kw)
+
+    # (a) the graph against the eager block loop, same generator state
+    for ncomp in (1, 2):
+        runner = nh3(ncomp, n_small)
+        cfg, ll2, data = config(ncomp), _loglike2_for(
+            runner, torch.float32), runner.data_tree()
+        # the second graph run reuses the first one's program and graphs
+        res, walls, stats = {}, {}, {}
+        for how in ("eager", "graph", "graph again"):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed + 100 + ncomp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if how == "eager":
+                st = ts.ns_init(gen, ll2, data, runner.ndim, n_small, cfg)
+                res[how] = ts.ns_finalize(ts.ns_traced(st, ll2, data, cfg),
+                                          cfg)
+            else:
+                res[how] = ts.run_nested(gen, ll2, runner.ndim, n_small, cfg,
+                                         data=data, segment_iters=0)
+                stats[how] = graphs.last_stats
+            torch.cuda.synchronize()
+            walls[how] = time.perf_counter() - t0
+        same = {f"{f} {how}": bool(torch.equal(getattr(res["eager"], f),
+                                               getattr(res[how], f)))
+                for how in stats
+                for f in ("lnz", "n_dead", "max_loglike", "ncall")}
+        print(f"traced graph vs eager ncomp={ncomp} R={n_small}: "
+              + ", ".join(f"{h} {w:.2f} s" for h, w in walls.items())
+              + ", " + ", ".join(
+                  f"{h}: {st.blocks} blocks, {st.replays} replays, "
+                  f"{st.captures} captures" for h, st in stats.items())
+              + f"; bit for bit {json.dumps(same)}", flush=True)
+        if not all(same.values()) or stats["graph"].replays == 0 \
+                or stats["graph again"].captures != 0:
+            fail(f"traced ncomp={ncomp}: the graph runs are not the eager "
+                 "one, or the second did not reuse the first's graphs")
+
+    # (b) full width, both rungs, against the segmented ladder
+    runs, fits = [], {}
+    for ncomp in (1, 2):
+        fits[ncomp], launches = run_rung(
+            f"traced rung ncomp={ncomp} R={n_pix}", seed + ncomp,
+            nh3(ncomp, n_pix), n_pix, config(ncomp), counters,
+            ["hf_chi2_fused", "table_lerp"]
+            + (["tapered_invert"] if ncomp == 2 else []),
+            ["gauss_chi2_fused"], segment_iters=0)
+        runs.append(launches)
+        if ncomp in ladder and ladder[ncomp][0].shape == (n_pix,):
+            z_seg, e_seg = ladder[ncomp]
+            d = fits[ncomp].lnz.cpu().numpy() - z_seg
+            comb = np.sqrt(fits[ncomp].lnz_err.cpu().numpy() ** 2
+                           + e_seg ** 2)
+            print(f"traced rung ncomp={ncomp}: lnZ - segmented lnZ median "
+                  f"{np.median(d):.3f} (combined error median "
+                  f"{np.median(comb):.3f}), beyond 4 combined errors on "
+                  f"{int((np.abs(d) > 4 * comb).sum())} of {n_pix} pixels",
+                  flush=True)
+            # the traced mode fills every collapsed-acceptance slot by a
+            # slice chain, whose correlated inserts bias lnZ high by up to
+            # ~1.7 nats at D = 12 (the JAX package's slice-fill pins):
+            # the median may sit up to two combined errors off
+            if not abs(np.median(d)) <= 2 * np.median(comb):
+                fail(f"traced rung {ncomp}: lnZ off the segmented ladder's")
+
+    # (c) each sampler knob through the graph, and K4 captured; the
+    # logZero floor is the lowest pixel's null-model lnL, so it excludes
+    # the prior's worse-than-empty models there and less elsewhere
+    floor = float(nh3(1, n_small).null_lnZ.min())
+    for kw in ({"efr": 0.3}, {"ceff": True, "efr": 0.3},
+               {"log_zero": floor}, {"pwrap_dims": (0,)}):
+        _, launches = run_rung(
+            f"traced knob {json.dumps(kw)} rung ncomp=1 R={n_small}",
+            seed + 1, nh3(1, n_small), n_small, config(1, **kw), counters,
+            ["hf_chi2_fused", "table_lerp"], ["gauss_chi2_fused"],
+            segment_iters=0)
+        runs.append(launches)
+    xarr, rest, data, _ = gauss_cube(n_small,
+                                     np.random.default_rng(seed + 10))
+    g_utrans = get_gaussian_priors(device="cuda")
+    _, launches = run_rung(
+        f"traced gauss rung ncomp=2 R={n_small}", seed + 2,
+        make_gauss_runner(xarr, rest, data, 2, g_utrans), n_small,
+        NSConfig(**LADDER), counters, ["gauss_chi2_fused", "table_lerp"],
+        ["hf_chi2_fused"], segment_iters=0)
+    runs.append(launches)
+
+    # (d) the modes of the full-width rung 2
+    runner = nh3(2, n_pix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    modes = posterior_modes(fits[2].ns, runner.transform)
+    torch.cuda.synchronize()
+    nm = modes.n_modes.cpu().numpy()
+    used = torch.isfinite(modes.mode_lnz)
+    ok = bool(torch.isfinite(modes.mode_mean[used]).all()) and \
+        bool(torch.isfinite(modes.mode_sigma[used]).all()) and nm.min() >= 1
+    print(f"traced modes R={n_pix}: {time.perf_counter() - t0:.2f} s, "
+          f"modes per pixel {np.bincount(nm).tolist()}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    if not ok:
+        fail("traced modes: a pixel without a finite mode")
+    graphs.clear()
+    return runs
 
 
 def ladder_decision(recs, thresh):
@@ -917,9 +1101,10 @@ def phase_cube(seed, n_pix, counters):
 
 
 def phase_profile(seed, n_pix, ncomp):
-    """One rung under ``torch.profiler``: device time by kernel and the
-    device's busy share of the rung wall (the profiler's own host cost
-    lengthens the wall, so the share is a lower bound)."""
+    """One rung under ``torch.profiler`` in each sampler mode (its
+    ``segment_iters``): device time by kernel and the device's busy
+    share of the rung wall (the profiler's own host cost lengthens the
+    wall, so the share is a lower bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from nestfit_tpu_torch.priors import get_irdc_priors
@@ -930,31 +1115,35 @@ def phase_profile(seed, n_pix, ncomp):
         n_pix=n_pix, noise=0.15, rng=np.random.default_rng(seed))
     runner = make_runner((xa11, xa22), (d11, d22), 0.15, ncomp,
                          get_irdc_priors(device="cuda"))
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed + ncomp)
-    cfg = NSConfig(nlive=100, tol=1.0, init_factor=4)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fit_batch(gen, runner, n_pix, cfg, segment_iters=250, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # kernel events only: an operator's row repeats its kernels' time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        rows.append((dev_us, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    print(f"profile rung ncomp={ncomp} R={n_pix}: wall {wall:.2f} s under "
-          f"the profiler, device busy {busy:.3f} s "
-          f"({100 * busy / wall:.1f}%)", flush=True)
-    for dev_us, count, key in rows[:15]:
-        print(f"  {dev_us / 1e3:10.2f} ms {count:8d} x  {key[:90]}",
+    cfg = NSConfig(**LADDER)
+    for segment_iters in (250, 0):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + ncomp)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fit_batch(gen, runner, n_pix, cfg, segment_iters=segment_iters,
+                      device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = []
+        for ev in prof.key_averages():
+            # kernel events only: an operator's row repeats its kernels'
+            # time
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+            rows.append((dev_us, ev.count, ev.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows) / 1e6
+        print(f"profile rung ncomp={ncomp} R={n_pix} segment_iters="
+              f"{segment_iters}: wall {wall:.2f} s under the profiler, "
+              f"device busy {busy:.3f} s ({100 * busy / wall:.1f}%)",
               flush=True)
+        for dev_us, count, key in rows[:15]:
+            print(f"  {dev_us / 1e3:10.2f} ms {count:8d} x  {key[:90]}",
+                  flush=True)
 
 
 def main():
@@ -1002,9 +1191,14 @@ def main():
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
     # launches on the main paths: every rung of the three ladders and
     # both cases of the cube phase
-    runs = []
-    for phase in (phase_ladder, phase_gauss_ladder, phase_n2hp_ladder):
+    runs, ladder = [], {}
+    runs += list(phase_ladder(args.seed, args.pixels, counters,
+                              ladder).values())
+    for phase in (phase_gauss_ladder, phase_n2hp_ladder):
         runs += list(phase(args.seed, args.pixels, counters).values())
+    t0 = time.perf_counter()
+    runs += phase_traced(args.seed, counters, ladder)
+    print(f"phase traced: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     runs += phase_cube(args.seed, CUBE_PIXELS, counters)
     print(f"phase cube: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -25,12 +25,18 @@ first use into ``nestfit_tpu_torch/_build/``.
 
 _CUBE_NAMES = ("CubeFitter", "CubeStack", "DataCube", "HdfStore", "NoiseMap",
                "NoiseMapUniform", "read_fits", "write_fits")
+_SAMPLING_NAMES = ("ModeProducts", "posterior_modes")
 
 
 def __getattr__(name):
-    # the cube layer (and torch) load on first use of one of its names
+    # the cube and sampling layers (and torch) load on first use of one
+    # of their names
     if name in _CUBE_NAMES:
         from nestfit_tpu_torch import cube
 
         return getattr(cube, name)
+    if name in _SAMPLING_NAMES:
+        from nestfit_tpu_torch import sampling
+
+        return getattr(sampling, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -59,12 +59,21 @@ def partition_level(j, trot):
     return (2.0 * j + 1.0) * torch.exp(-e_j / trot)
 
 
+#: the level tables on each device and dtype (a likelihood call copies
+#: nothing from the host, so it can be captured in a CUDA graph)
+_LEVELS = {}
+
+
 def partition_func(para: bool, trot):
     """Partition function over the para or ortho J levels (ortho levels
     carry the spin degeneracy factor 2)."""
-    e, g = (_E_PARA, _G_PARA) if para else (_E_ORTH, _G_ORTH)
-    e = torch.as_tensor(e, dtype=trot.dtype, device=trot.device)
-    g = torch.as_tensor(g, dtype=trot.dtype, device=trot.device)
+    key = (para, trot.dtype, trot.device)
+    if key not in _LEVELS:
+        e, g = (_E_PARA, _G_PARA) if para else (_E_ORTH, _G_ORTH)
+        _LEVELS[key] = tuple(torch.as_tensor(x, dtype=trot.dtype,
+                                             device=trot.device)
+                             for x in (e, g))
+    e, g = _LEVELS[key]
     q = torch.sum(g * torch.exp(-e / trot[..., None]), dim=-1)
     return q if para else 2.0 * q
 

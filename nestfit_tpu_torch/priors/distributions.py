@@ -130,6 +130,9 @@ def cdf_interp(dist_or_cdf, u, xax=None, dx=None):
     return xax[i_lo] + (u - y_lo) * (dx / denom)
 
 
+_SFACT = {}
+
+
 def cdf_over_interval(dist: Distribution, x_lo, x_hi, sfact):
     """Re-normalised, power-law-tapered CDF ``[..., N]`` over
     ``[x_lo, x_hi]`` (the dense form; the placement prior uses it only
@@ -148,7 +151,10 @@ def cdf_over_interval(dist: Distribution, x_lo, x_hi, sfact):
     i_hi_b = i_hi[..., None]
     span = torch.clamp(i_hi_b - i_lo_b, min=1).to(dtype)
     t = (idx - i_lo_b).to(dtype) / span
-    sf = torch.as_tensor(sfact, dtype=dtype, device=lo.device)
+    key = (float(sfact), dtype, lo.device)
+    if key not in _SFACT:     # built once: no host copy per call
+        _SFACT[key] = torch.as_tensor(sfact, dtype=dtype, device=lo.device)
+    sf = _SFACT[key]
     taper = torch.clamp(1.0 - t, 0.0, 1.0) ** sf[..., None]
     pdf = dist.pdf
     trap = 0.5 * (pdf + torch.roll(pdf, 1))

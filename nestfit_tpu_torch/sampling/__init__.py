@@ -8,8 +8,10 @@ from nestfit_tpu_torch.sampling.fit import (
 from nestfit_tpu_torch.sampling.results import (
     MARGINAL_COLS,
     QUANTILES,
+    ModeProducts,
     PosteriorProducts,
     information_criteria,
+    posterior_modes,
     posterior_products,
     resolve_n_post,
 )

@@ -1,5 +1,5 @@
 """Fit orchestration: runner + nested sampler + posterior products
-(port of ``FitResult``, the segmented ``fit_batch``, ``align_fit_meta``,
+(port of ``FitResult``, ``fit_batch``, ``align_fit_meta``,
 ``merge_fit_rows`` and ``fit_single`` of ``nestfit_tpu/sampling/fit.py``)."""
 
 import dataclasses
@@ -15,7 +15,12 @@ from nestfit_tpu_torch.sampling.results import (
     posterior_products,
     resolve_n_post,
 )
-from nestfit_tpu_torch.sampling.sampler import NSConfig, NSResult, run_nested
+from nestfit_tpu_torch.sampling.sampler import (
+    NSConfig,
+    NSResult,
+    _memo,
+    run_nested,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +44,18 @@ class FitResult:
         return self.ns.lnz_err
 
 
+def _loglike2_for(runner: Runner, dtype):
+    """``loglike2(u, data)`` of ``runner`` on fresh pixel data, one per
+    runner and dtype, so the traced mode's graphs serve every call on the
+    same runner."""
+    def make():
+        def loglike2(u, d):
+            return runner.with_data(d).loglike_unit(u).to(dtype)
+        return loglike2, runner
+
+    return _memo(("runner", id(runner), dtype), make)
+
+
 def fit_batch(
     gen: torch.Generator,
     runner: Runner,
@@ -58,8 +75,10 @@ def fit_batch(
     (``runner.data_tree()``-structured) substitutes fresh pixel data.
     ``gen`` is a caller-seeded ``torch.Generator`` on ``device``, where the
     runner must live too.  ``active`` marks padding rows of a partial
-    batch as born done.  Only the segmented sampler is ported
-    (``segment_iters > 0``).
+    batch as born done.  ``segment_iters=0`` runs the traced sampler (CUDA
+    graphs on the card) on the runner's own spectra: ``data`` must then
+    be None.  The default stays the segmented sampler, where the JAX
+    package defaults to the traced one.
     """
     dev = resolve_device(device)
     if runner.device != dev or gen.device != dev:
@@ -69,14 +88,15 @@ def fit_batch(
     if not config.flat_dims and runner.utrans is not None:
         config = dataclasses.replace(
             config, flat_dims=tuple(runner.utrans.flat_dims(runner.ncomp)))
+    traced = not (segment_iters and segment_iters > 0)
+    if traced and data is not None:
+        raise ValueError("data substitution needs segment_iters > 0; the "
+                         "traced mode fits the runner's own spectra")
     if data is None:
         data = runner.data_tree()
-
-    def loglike2(u, d):
-        return runner.with_data(d).loglike_unit(u).to(dtype)
-
-    ns = run_nested(gen, loglike2, runner.ndim, n_runs, config, dtype=dtype,
-                    data=data, segment_iters=segment_iters, active=active)
+    ns = run_nested(gen, _loglike2_for(runner, dtype), runner.ndim, n_runs,
+                    config, dtype=dtype, data=data,
+                    segment_iters=segment_iters, active=active)
     r2 = runner.with_data(data)
     products = posterior_products(ns, r2.transform, gen, n_post=n_post)
     null_lnz = torch.broadcast_to(

@@ -1,22 +1,29 @@
 """Vectorized batched-kill nested sampler
-(port of the segmented ``method="auto"`` path of
-``nestfit_tpu/sampling/sampler.py``).
+(port of ``nestfit_tpu/sampling/sampler.py``: the segmented and the
+traced mode, and every ``NSConfig`` knob).
 
 A batch of R independent nested-sampling runs (one per pixel) advances
 in lockstep.  Each fill-cycle kills the ``kill_k`` worst live points of a
 run and replaces them with draws above the frozen threshold, first from
 a multi-ellipsoid rejection proposal (the candidate regime), then, once
 its acceptance collapses, from whitened multi-chain slice sampling (the
-kill+slice regime); a host loop switches between the two, probes for a
-switch back, and compacts straggler runs.  The JAX package documents the
-algorithm and its measured choices; this module keeps its structure so
-the two can be read side by side.
+kill+slice regime).  In the segmented mode a host loop switches between
+the two, probes for a switch back, and compacts straggler runs; the
+traced mode (``segment_iters=0``) repeats one block of ``block_iters``
+candidate iterations and a masked slice fill until every run is done
+(``graphs.py`` captures the block as a CUDA graph on the card).  The JAX
+package documents the algorithm and its measured choices; this module
+keeps its structure so the two can be read side by side.
 
 What differs from the JAX package, by design:
 
 * Every ``lax.while_loop`` is a Python loop whose condition reads the
   ``[R]`` done mask on the host.  The iteration counter ``i`` is a host
   integer, so the bound-refresh ``lax.cond`` becomes a Python ``if``.
+* The traced mode's candidate iterations do not stop when every run is
+  done: a block always runs its ``block_iters`` masked iterations, which
+  then change nothing a caller reads, and the host reads the done mask
+  once per block.
 * The shrinkage loop of a slice step runs a fixed number of masked rounds
   (``ceil(max_contract / spec_width)``) instead of stopping when every
   lane has accepted: the extra rounds change nothing a caller reads and
@@ -28,9 +35,10 @@ What differs from the JAX package, by design:
 * Large per-run buffers (``dead_u``/``dead_lnl``) are updated in place:
   the host loop never reuses a state it passed on (the JAX package
   donates it).
-* Only the segmented mode exists; ``pwrap_dims``, ``ceff``, ``efr`` and
-  a non-default ``log_zero`` raise ``NotImplementedError`` (ROADMAP.md
-  Queue 1 items 9 and 10).
+* No operation of an iteration waits for the host: masked scatters
+  write their dropped entries to a spare column or back onto themselves
+  instead of compacting by a boolean mask, and the constant tables are
+  built once per device, so an iteration can be captured in a graph.
 """
 
 import dataclasses
@@ -61,7 +69,7 @@ class NSConfig:
     cube_redraws: int = 4         # redraw rounds for out-of-cube draws
     bound_every: int = 4          # iterations between bound recomputes
     flat_dims: tuple = ()         # likelihood-flat unit-cube dims
-    pwrap_dims: tuple = ()        # periodic dims (not ported)
+    pwrap_dims: tuple = ()        # periodic unit-cube dims (pWrap)
     block_iters: int = 8          # candidate iterations per slice fill
     cand_min_acc: float = 0.0     # regime-switch threshold; 0 -> auto
     switch_iters: int = 16        # candidate segment length in "auto"
@@ -75,23 +83,17 @@ class NSConfig:
     spec_width: int = 2           # speculative proposals per launch
     cov_reg: float = 1e-10        # covariance diagonal regularizer
     ell_fudge: float = 1.05       # ellipsoid enlargement
-    efr: float = 0.0              # MultiNest efr (not ported)
-    ceff: bool = False            # constant-efficiency mode (not ported)
+    efr: float = 0.0              # MultiNest efr: ellipsoid volume x 1/efr
+    ceff: bool = False            # constant-efficiency mode
     dir_mode: str = "diff"        # slice directions: gauss/diff/mix
     fallback_repeats: int = 0     # slice steps per fill chain; 0 -> auto
-    log_zero: float = -1e90       # MultiNest logZero (not ported)
+    log_zero: float = -1e90       # MultiNest logZero floor (off below -1e60)
     init_factor: int = 1          # oversampled-init multiplier
     init_stratified: bool = True  # Latin-hypercube initial live set
     init_chunk: int = 32          # live-point chunk for the init evals
     min_compact: int = 64         # smallest compacted batch
 
     def __post_init__(self):
-        for knob, off in (("pwrap_dims", ()), ("ceff", False),
-                          ("efr", 0.0), ("log_zero", -1e90)):
-            if getattr(self, knob) != off:
-                raise NotImplementedError(
-                    f"NSConfig.{knob} is not ported to nestfit_tpu_torch yet "
-                    "(ROADMAP.md Queue 1 item 10)")
         if self.method not in ("auto", "ellipsoid", "slice"):
             raise ValueError(f"unknown method {self.method!r}")
 
@@ -168,7 +170,7 @@ class _State:
     i: int                     # iteration counter (host copy)
     bounds: tuple              # cached bounding geometry
     acc_ema: torch.Tensor      # 0-d EMA of candidate acceptance
-    ceff_mult: torch.Tensor    # [R] (stays 1: ceff is not ported)
+    ceff_mult: torch.Tensor    # [R] ceff volume multiplier (1 unless ceff)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,10 +212,22 @@ def _randn(gen, shape, like):
 
 
 def _put(dst, rows, cols, vals, ok):
-    """``dst[rows, cols] = vals`` where ``ok``, in place: JAX's
-    ``.at[rows, cols].set(vals, mode="drop")`` with the dropped entries
-    masked out."""
-    dst[rows[ok], cols[ok]] = vals[ok]
+    """``dst`` ``[R, N, ...]`` with ``dst[rows, cols] = vals`` where
+    ``ok``, out of place: JAX's ``.at[rows, cols].set(vals, mode="drop")``.
+    Dropped entries go to a spare column N, so ``cols`` may repeat where
+    ``ok`` is False, and nothing waits for the host."""
+    N = dst.shape[1]
+    pad = torch.cat([dst, dst[:, :1]], dim=1)
+    pad[rows, torch.where(ok, cols, N)] = vals
+    return pad[:, :N]
+
+
+def _put_inplace(dst, rows, cols, vals, ok):
+    """``dst[rows, cols] = vals`` where ``ok``, in place, for a buffer
+    too large to copy; every ``(rows, cols)`` pair must be distinct, and
+    the entries not ``ok`` write back what they read."""
+    keep = ok if vals.ndim == ok.ndim else ok[..., None]
+    dst[rows, cols] = torch.where(keep, vals, dst[rows, cols])
 
 
 def _chol(cov):
@@ -228,10 +242,48 @@ def _tri_solve(chol, b):
     return torch.linalg.solve_triangular(chol, b, upper=False)
 
 
-def _line_bracket(x, dirv, z, nvec, rmax):
+def _wrap_vec(cfg: NSConfig, ndim: int, like):
+    """``[D]`` bool mask of the periodic dims on ``like``'s device, or
+    None when ``cfg.pwrap_dims`` is empty (the default path stays free
+    of wrap operations)."""
+    if not cfg.pwrap_dims:
+        return None
+    key = ("wrap", tuple(cfg.pwrap_dims), ndim, like.device)
+    if key not in _CONSTS:
+        m = np.zeros((ndim,), dtype=bool)
+        m[np.asarray(cfg.pwrap_dims, dtype=np.int64)] = True
+        _CONSTS[key] = torch.as_tensor(m, device=like.device)
+    return _CONSTS[key]
+
+
+def _wrap_pts(x, wrap):
+    """Wrap the periodic dims of cube points into [0, 1)."""
+    if wrap is None:
+        return x
+    return torch.where(wrap, x - torch.floor(x), x)
+
+
+def _recenter(u, wrap):
+    """The periodic dims of the live matrix ``u`` ``[R, L, D]`` in
+    universal-cover coordinates around each run's circular mean, so the
+    bounding geometry sees a seam-split cloud as one compact cloud (see
+    the JAX package)."""
+    if wrap is None:
+        return u
+    two_pi = 2.0 * np.pi
+    ang = u * two_pi
+    theta = torch.atan2(torch.mean(torch.sin(ang), dim=1),
+                        torch.mean(torch.cos(ang), dim=1)) / two_pi
+    d = u - theta[:, None, :]
+    d = d - torch.round(d)
+    return torch.where(wrap, theta[:, None, :] + d, u)
+
+
+def _line_bracket(x, dirv, z, nvec, rmax, wrap=None):
     """Slice bracket: the t-interval of ``x + t * dirv`` inside both the
     global bounding ellipsoid (whitened ``z + t * nvec``, radius
-    ``rmax``) and the unit cube; t = 0 always inside."""
+    ``rmax``) and the unit cube; t = 0 always inside.  Periodic dims
+    (``wrap``) have no cube walls."""
     big = 1e30
     a = torch.sum(nvec**2, dim=-1)
     b = 2.0 * torch.sum(z * nvec, dim=-1)
@@ -248,17 +300,22 @@ def _line_bracket(x, dirv, z, nvec, rmax):
                          torch.where(neg, (0.0 - x) / safe, big))
     t_lo_d = torch.where(neg, (1.0 - x) / safe,
                          torch.where(pos, (0.0 - x) / safe, -big))
+    if wrap is not None:
+        t_hi_d = torch.where(wrap, big, t_hi_d)
+        t_lo_d = torch.where(wrap, -big, t_lo_d)
     t_lo = torch.maximum(te_lo, torch.amax(t_lo_d, dim=-1))
     t_hi = torch.minimum(te_hi, torch.amin(t_hi_d, dim=-1))
     return torch.clamp(t_lo, max=0.0), torch.clamp(t_hi, min=0.0)
 
 
 def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
-                  t_hi0, lnl_star, done, cfg):
+                  t_hi0, lnl_star, done, cfg, wrap=None):
     """Shrinkage-only slice step from an analytic bracket, with
     ``cfg.spec_width`` speculative proposals per likelihood launch (see
     the JAX package).  Returns ``(x, lnl, t_acc, acc, ncall)``; ``ncall``
     counts only the evaluations the sequential algorithm consumes.
+    Periodic dims (``wrap``) stay in universal-cover coordinates and are
+    wrapped into the cube only for the likelihood.
 
     Runs the full ``ceil(max_contract / W)`` rounds: once a lane has
     accepted, later rounds change nothing for it."""
@@ -267,7 +324,11 @@ def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
     budget = cfg.max_contract
 
     def pt(t):
-        return torch.clamp(x0 + t[..., None] * dirv, 0.0, 1.0)
+        xr = x0 + t[..., None] * dirv
+        xp = torch.clamp(xr, 0.0, 1.0)
+        if wrap is not None:
+            xp = torch.where(wrap, xr, xp)
+        return xp
 
     t_lo, t_hi, x, lnl = t_lo0, t_hi0, x0, lnl0
     t_acc = torch.zeros_like(lnl_star)
@@ -287,7 +348,8 @@ def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
                 tl = torch.where(t < 0, t, tl)
                 th = torch.where(t >= 0, t, th)
         stack = torch.stack([pt(t) for t in ts], dim=0)
-        lnlp = loglike2(stack.reshape((-1,) + x0.shape[1:]), data).reshape(
+        lnlp = loglike2(_wrap_pts(stack, wrap).reshape(
+            (-1,) + x0.shape[1:]), data).reshape(
             (W,) + lnl_star.shape) - shift
         live0 = ~(done | acc)
         taken = torch.zeros_like(acc)
@@ -314,7 +376,7 @@ def _whiten(chol, du):
 
 def _slice_chains(gen, loglike2, data, shift, x, z, lnl_x, thr_b, dead_b,
                   chol, rmax, act, n_rep, cfg, u_all=None, order=None,
-                  n_surv=None):
+                  n_surv=None, wrap=None):
     """Advance ``[C, R]`` whitened slice chains by ``n_rep`` repeats;
     returns ``(x, lnl_x, ncall[R], moved[C, R])``.  Directions follow
     ``cfg.dir_mode`` ("gauss", "diff" survivor differences, or "mix")."""
@@ -339,6 +401,9 @@ def _slice_chains(gen, loglike2, data, shift, x, z, lnl_x, thr_b, dead_b,
         ca = torch.gather(order, 1, ia.T)                     # [R, C]
         cb = torch.gather(order, 1, ib.T)
         dab = u_all[rr[:, None], ca] - u_all[rr[:, None], cb]  # [R, C, D]
+        if wrap is not None:
+            # minimal image of the survivor difference on periodic dims
+            dab = torch.where(wrap, dab - torch.round(dab), dab)
         dirv = dab.transpose(0, 1) * act                      # [C, R, D]
         nvec = _whiten(chol, dirv)
         nrm = torch.clamp(torch.linalg.vector_norm(nvec, dim=-1,
@@ -350,10 +415,11 @@ def _slice_chains(gen, loglike2, data, shift, x, z, lnl_x, thr_b, dead_b,
     for j in range(n_rep):
         use_d = mode == "diff" or (mode == "mix" and j % 2 == 0)
         nvec, dirv = diff_dir() if use_d else gauss_dir()
-        t_lo, t_hi = _line_bracket(x, dirv, z, nvec, rmax[None, :])
+        t_lo, t_hi = _line_bracket(x, dirv, z, nvec, rmax[None, :],
+                                   wrap=wrap)
         xn, lnln, t_acc, acc, nc = _shrink_slice(
             loglike2, data, shift, gen, x, lnl_x, dirv, t_lo, t_hi,
-            thr_b, dead_b, cfg,
+            thr_b, dead_b, cfg, wrap=wrap,
         )
         upd = (~dead_b) & acc
         x = torch.where(upd[..., None], xn, x)
@@ -364,6 +430,11 @@ def _slice_chains(gen, loglike2, data, shift, x, z, lnl_x, thr_b, dead_b,
     return x, lnl_x, ncall, moved
 
 
+#: constant tensors built from host values, per device and dtype: an
+#: iteration copies nothing from the host
+_CONSTS = {}
+
+
 def _act_arrays(cfg: NSConfig, ndim: int, like):
     """Active-dimension mask: likelihood-flat dims are excluded from the
     bounding geometry and sampled uniformly."""
@@ -371,8 +442,19 @@ def _act_arrays(cfg: NSConfig, ndim: int, like):
     for fd in cfg.flat_dims:
         if 0 <= int(fd) < ndim:
             act_np[int(fd)] = 0.0
-    return torch.as_tensor(act_np, dtype=like.dtype, device=like.device), \
-        act_np
+    key = ("act", act_np.tobytes(), like.dtype, like.device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.as_tensor(act_np, dtype=like.dtype,
+                                       device=like.device)
+    return _CONSTS[key], act_np
+
+
+def _efr_mult(cfg: NSConfig, d_act: float) -> float:
+    """MultiNest's efr as a radius multiplier: ellipsoid volumes grow by
+    1/efr; clamped at 1, so efr > 1 is a no-op (see the JAX package)."""
+    if cfg.efr > 0:
+        return max(1.0, (1.0 / cfg.efr) ** (1.0 / max(d_act, 1.0)))
+    return 1.0
 
 
 def _shrunk_cov(u, mean, live_w, n_live, act, act_np, cfg):
@@ -396,19 +478,20 @@ def _live_moments(u, zombie):
     return live_w, n_live, mean
 
 
-def _radius(chol, mean, u, act, cfg):
+def _radius(chol, mean, u, act, act_np, cfg):
     """Bounding radius covering every slot (zombie shell included)."""
     du_all = (u - mean[:, None, :]) * act
     dz = _tri_solve(chol, du_all.transpose(1, 2))          # [R, D, L]
     rmax = torch.sqrt(torch.amax(torch.sum(dz**2, dim=1), dim=1))
-    return torch.clamp(rmax, min=0.1) * cfg.ell_fudge
+    return torch.clamp(rmax, min=0.1) * (
+        cfg.ell_fudge * _efr_mult(cfg, float(act_np.sum())))
 
 
 def _slim_bounds(u, zombie, act, act_np, cfg: NSConfig):
     """Global whitening + bounding radius only: ``(chol, mean, rmax)``."""
     live_w, n_live, mean = _live_moments(u, zombie)
     chol = _chol(_shrunk_cov(u, mean, live_w, n_live, act, act_np, cfg))
-    return chol, mean, _radius(chol, mean, u, act, cfg)
+    return chol, mean, _radius(chol, mean, u, act, act_np, cfg)
 
 
 def _compute_bounds(u, zombie, act, act_np, cfg: NSConfig):
@@ -483,9 +566,10 @@ def _compute_bounds(u, zombie, act, act_np, cfg: NSConfig):
         score = torch.where((cnt > 0)[:, None, :], score, big)
         assign = torch.argmin(score, dim=-1)
         cnt, mu_k, chol_k, d2, rmax2 = cluster_geom(assign)
-    rmax_k = torch.clamp(torch.sqrt(rmax2), min=0.1) * cfg.ell_fudge
-    rmax_g = _radius(chol, mean, u, act, cfg)
     d_act = float(act_np.sum())
+    rmax_k = torch.clamp(torch.sqrt(rmax2), min=0.1) * (
+        cfg.ell_fudge * _efr_mult(cfg, d_act))
+    rmax_g = _radius(chol, mean, u, act, act_np, cfg)
 
     def ell_lnvol(rmax, chol_m):
         return d_act * torch.log(rmax) + torch.sum(
@@ -578,7 +662,7 @@ def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
     """One batched-deletion step: record the kill_k worst live points of
     every run whose previous fill-cycle completed.  Writes the dead
     buffers of ``s`` in place; returns ``(lnz, n_deaths, pending,
-    zombie, thresh)``."""
+    zombie, thresh)`` (``zombie`` a new tensor)."""
     R, L, D = s.u.shape
     K = cfg.kill_k
     max_iter = cfg.max_iter
@@ -589,8 +673,11 @@ def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
     pos = s.n_deaths[:, None].long() + torch.arange(K, device=rr.device)
     ok_w = need_kill[:, None] & (pos < max_iter)
     rrk = rr[:, None].expand(R, K)
-    _put(s.dead_u, rrk, pos, kill_u, ok_w)
-    _put(s.dead_lnl, rrk, pos, kill_lnl, ok_w)
+    # slots past the budget (n_deaths <= max_iter) write back K columns
+    # lower, where no slot of the row writes: every pair stays distinct
+    pos_w = torch.where(pos < max_iter, pos, pos - K)
+    _put_inplace(s.dead_u, rrk, pos_w, kill_u, ok_w)
+    _put_inplace(s.dead_lnl, rrk, pos_w, kill_lnl, ok_w)
     lnw_k = lnw_tab[torch.clamp(pos, 0, max_iter - 1)]
     contrib = torch.logsumexp(
         torch.where(ok_w, lnw_k + kill_lnl, _NEG), dim=1)
@@ -598,9 +685,8 @@ def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
     n_deaths = torch.where(
         need_kill, torch.clamp(s.n_deaths + K, max=max_iter), s.n_deaths)
     pending = torch.where(need_kill, K, s.pending).to(torch.int32)
-    zombie = s.zombie.clone()
-    _put(zombie, rrk, worst_idx, torch.ones_like(ok_w),
-         need_kill[:, None].expand(R, K))
+    zombie = _put(s.zombie, rrk, worst_idx, torch.ones_like(ok_w),
+                  need_kill[:, None].expand(R, K))
     thresh = torch.where(need_kill, thresh_new, s.thresh)
     return lnz, n_deaths, pending, zombie, thresh
 
@@ -623,10 +709,17 @@ def _check_termination(cfg: NSConfig, lnx_tab, done, zombie, lnl, lnz,
 
 
 def _tables(cfg: NSConfig, L: int, like):
-    lnx_np, lnw_np = _weight_tables(L, cfg.kill_k, cfg.max_iter,
-                                    cfg.n_init_dead())
-    return (torch.as_tensor(lnx_np, dtype=like.dtype, device=like.device),
-            torch.as_tensor(lnw_np, dtype=like.dtype, device=like.device))
+    """``(lnx_tab, lnw_tab)`` of :func:`_weight_tables` on ``like``'s
+    device and dtype (built once)."""
+    key = ("tables", L, cfg.kill_k, cfg.max_iter, cfg.n_init_dead(),
+           like.dtype, like.device)
+    if key not in _CONSTS:
+        lnx_np, lnw_np = _weight_tables(L, cfg.kill_k, cfg.max_iter,
+                                        cfg.n_init_dead())
+        _CONSTS[key] = tuple(
+            torch.as_tensor(t, dtype=like.dtype, device=like.device)
+            for t in (lnx_np, lnw_np))
+    return _CONSTS[key]
 
 
 def _running(s: _State, seg_end: int) -> bool:
@@ -636,46 +729,49 @@ def _running(s: _State, seg_end: int) -> bool:
 
 
 def _fill(s, rows, slots, cand, cand_lnl, use, zombie):
-    """Insert accepted points into their slots: fresh u/lnl, the given
-    (already private) zombie mask updated in place."""
-    u_new = s.u.clone()
-    lnl_new = s.lnl.clone()
-    _put(u_new, rows, slots, cand, use)
-    _put(lnl_new, rows, slots, cand_lnl, use)
-    _put(zombie, rows, slots, torch.zeros_like(use), use)
-    return u_new, lnl_new
+    """Insert accepted points into their slots: new ``(u, lnl, zombie)``
+    (a slot repeats only where ``use`` is False)."""
+    return (_put(s.u, rows, slots, cand, use),
+            _put(s.lnl, rows, slots, cand_lnl, use),
+            _put(zombie, rows, slots, torch.zeros_like(use), use))
 
 
-def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
-                  seg_end: int) -> _State:
-    """Advance all runs until ``i >= seg_end`` or every run is done with
-    kill/record + ellipsoid-candidate proposals only."""
-    R, L, D = state.u.shape
-    cfg = cfg.resolved(D)
-    like = state.u
+def _core_step(s: _State, loglike2, data, cfg: NSConfig,
+               refresh: bool) -> _State:
+    """One candidate iteration (the loop body of the JAX package's
+    ``_segment_core``): kill/record, the bounding geometry (rebuilt when
+    ``refresh``), one batched proposal launch (ellipsoid candidates, or
+    one slice chain per run for ``method="slice"``), fills, termination.
+    Every row that is done stays as it is.  ``cfg`` is resolved."""
+    R, L, D = s.u.shape
+    like = s.u
     dtype = like.dtype
     T = cfg.n_cand()
     lnx_tab, lnw_tab = _tables(cfg, L, like)
     rr = torch.arange(R, device=like.device)
     act, act_np = _act_arrays(cfg, D, like)
     any_flat = bool((act_np == 0.0).any())
-    d_exp = 1.0 / max(float(act_np.sum()), 1.0)
-    gen = state.gen
-    s = state
-    while _running(s, seg_end):
-        shift = s.lnl_shift
-        lnz, n_deaths, pending, zombie, thresh = _kill_record(s, cfg, lnw_tab,
-                                                               rr)
-        active = (~s.done) & (pending > 0)
-        if s.i % max(1, cfg.bound_every) == 0:
-            bounds = _compute_bounds(s.u, zombie, act, act_np, cfg)
-        else:
-            bounds = s.bounds
-        # zombie slots first (stable sort on ~zombie: False < True)
-        zorder = torch.argsort((~zombie).to(torch.uint8), dim=1, stable=True)
+    d_act = float(act_np.sum())
+    d_exp = 1.0 / max(d_act, 1.0)
+    wrap = _wrap_vec(cfg, D, like)
+    gen = s.gen
+    shift = s.lnl_shift
+    lnz, n_deaths, pending, zombie, thresh = _kill_record(s, cfg, lnw_tab, rr)
+    active = (~s.done) & (pending > 0)
+    # periodic dims: the geometry sees minimal-image coordinates
+    u_geo = _recenter(s.u, wrap)
+    bounds = _compute_bounds(u_geo, zombie, act, act_np, cfg) if refresh \
+        else s.bounds
+    # zombie slots first (stable sort on ~zombie: False < True)
+    zorder = torch.argsort((~zombie).to(torch.uint8), dim=1, stable=True)
+    acc_ema, ceff_mult = s.acc_ema, s.ceff_mult
+    if cfg.method != "slice":
         (mu_all, chol_all, rmax_all, lnvol_all, act_ell, use_cube,
          inv_chol) = bounds
         KC = mu_all.shape[1] - 1
+        # constant-efficiency mode: per-run radius scale (<= 1)
+        s_ceff = s.ceff_mult ** (1.0 / max(d_act, 1.0)) if cfg.ceff \
+            else None
 
         def draw_round():
             # volume-proportional ellipsoid choice (Gumbel-max), then a
@@ -687,6 +783,8 @@ def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
                 chol_all, 1, kc[..., None, None].expand(R, T, D, D))
             mu_sel = torch.gather(mu_all, 1, kc[..., None].expand(R, T, D))
             r_sel = torch.gather(rmax_all, 1, kc)                # [R, T]
+            if s_ceff is not None:
+                r_sel = r_sel * s_ceff[:, None]
             y = _randn(gen, (T, R, D), like) * act
             y = y / torch.clamp(torch.linalg.vector_norm(
                 y, dim=-1, keepdim=True), min=1e-30)
@@ -695,6 +793,8 @@ def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
             xj = mu_sel.transpose(0, 1) + torch.einsum(
                 "rtde,tre->trd", chol_sel, z)                   # [T, R, D]
             in_ok = ((xj >= 0.0) & (xj <= 1.0)) | (act <= 0.0)
+            if wrap is not None:
+                in_ok = in_ok | wrap     # periodic dims wrap instead
             return xj, torch.all(in_ok, dim=-1)
 
         cand, got = draw_round()
@@ -706,30 +806,24 @@ def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
         cand = torch.where(use_cube[None, :, None], ucube, cand)
         if any_flat:
             cand = torch.where(act > 0, cand, ucube)
+        cand = _wrap_pts(cand, wrap)
         # overlap thinning: keep with probability 1/#ellipsoids holding it
-        xc = (cand[:, :, None, :] - mu_all[None]) * act         # [T,R,K+1,D]
+        # (minimal-image offsets on periodic dims)
+        xc = cand[:, :, None, :] - mu_all[None]                 # [T,R,K+1,D]
+        if wrap is not None:
+            xc = torch.where(wrap, xc - torch.round(xc), xc)
+        xc = xc * act
         m2 = torch.sum(torch.einsum("rkde,trke->trkd", inv_chol, xc) ** 2,
                        dim=-1)
-        inside = (m2 <= rmax_all[None] ** 2) & act_ell[None]
+        r_thin = rmax_all if s_ceff is None else rmax_all * s_ceff[:, None]
+        inside = (m2 <= r_thin[None] ** 2) & act_ell[None]
         n_e = torch.clamp(torch.sum(inside, dim=-1), min=1)
         thin = (_rand(gen, (T, R), like) * n_e < 1.0) | use_cube[None, :]
         inb = torch.all((cand >= 0.0) & (cand <= 1.0), dim=-1)
         cand_lnl = torch.where(
             inb, loglike2(torch.clamp(cand, 0.0, 1.0), data) - shift, _NEG)
         okc = (cand_lnl > thresh) & active[None, :] & thin
-
-        # fill zombie slots with accepted candidates
-        rank = torch.cumsum(okc.to(torch.int32), dim=0)          # [T, R]
-        use = okc & (rank <= pending[None, :])
-        slot = torch.gather(
-            zorder, 1, torch.clamp(rank - 1, 0, L - 1).T.long()).T  # [T, R]
-        rows = rr[None, :].expand(T, R)
-        u_new, lnl_new = _fill(s, rows, slot, cand, cand_lnl, use, zombie)
-        n_take = torch.sum(use, dim=0, dtype=torch.int32)
-        pending = pending - n_take
         ncall = s.ncall + active.to(torch.int32) * T
-        stall = torch.where(active & (n_take == 0) & (pending > 0),
-                            s.stall + 1, 0).to(torch.int32)
         # acceptance EMA over union-proposal runs only (cube start-up
         # runs carry no signal about the union's fit)
         sig = active & ~use_cube
@@ -738,21 +832,78 @@ def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
             / torch.clamp(n_sig * T, min=1.0)
         acc_ema = torch.where(n_sig > 0, 0.8 * s.acc_ema + 0.2 * acc,
                               s.acc_ema)
-        newly_done, newly_conv = _check_termination(
-            cfg, lnx_tab, s.done, zombie, lnl_new, lnz, n_deaths, stall)
-        s = dataclasses.replace(
-            s, u=u_new, lnl=lnl_new, lnz=lnz, done=s.done | newly_done,
-            converged=s.converged | newly_conv, n_deaths=n_deaths,
-            pending=pending, thresh=thresh, zombie=zombie, stall=stall,
-            ncall=ncall, i=s.i + 1, bounds=bounds, acc_ema=acc_ema)
+        if cfg.ceff:
+            # constant-efficiency controller: multiplicative volume
+            # update toward the target acceptance, per run
+            target = cfg.efr if cfg.efr > 0 else 0.3
+            acc_r = torch.sum(okc.to(dtype), dim=0) / float(T)
+            ceff_mult = torch.where(
+                active & ~use_cube,
+                torch.clamp(s.ceff_mult * torch.exp(0.5 * (acc_r - target)),
+                            float(np.exp(-6.0)), 1.0),
+                s.ceff_mult)
+    else:
+        # slice method: one slice chain per run from a random survivor
+        # yields one candidate (kill_k == 1)
+        nz_cnt = torch.clamp(L - pending, min=1)
+        jsel = torch.randint(0, 1 << 30, (R,), generator=gen,
+                             device=like.device)
+        sel = torch.gather(zorder, 1,
+                           (L - 1 - (jsel % nz_cnt))[:, None].long())[:, 0]
+        x0 = u_geo[rr, sel][None]                               # [1, R, D]
+        lnl0 = torch.gather(s.lnl, 1, sel[:, None])[:, 0][None]
+        chol_g, mu_g, rmax_g = _global_ell(bounds)
+        z0 = _whiten(chol_g, (x0 - mu_g[None]) * act)
+        x, cand_lnl, nc, moved = _slice_chains(
+            gen, loglike2, data, shift, x0, z0, lnl0, thresh[None, :],
+            (~active)[None, :], chol_g, rmax_g, act, cfg.n_repeats, cfg,
+            u_all=s.u, order=torch.flip(zorder, dims=(1,)), n_surv=nz_cnt,
+            wrap=wrap)
+        cand = _wrap_pts(x, wrap)
+        okc = moved & (cand_lnl > thresh) & active[None, :]
+        ncall = s.ncall + nc
+
+    # fill zombie slots with accepted candidates
+    Tc = cand.shape[0]
+    rank = torch.cumsum(okc.to(torch.int32), dim=0)             # [T, R]
+    use = okc & (rank <= pending[None, :])
+    slot = torch.gather(
+        zorder, 1, torch.clamp(rank - 1, 0, L - 1).T.long()).T  # [T, R]
+    rows = rr[None, :].expand(Tc, R)
+    u_new, lnl_new, zombie = _fill(s, rows, slot, cand, cand_lnl, use,
+                                   zombie)
+    n_take = torch.sum(use, dim=0, dtype=torch.int32)
+    pending = pending - n_take
+    stall = torch.where(active & (n_take == 0) & (pending > 0),
+                        s.stall + 1, 0).to(torch.int32)
+    newly_done, newly_conv = _check_termination(
+        cfg, lnx_tab, s.done, zombie, lnl_new, lnz, n_deaths, stall)
+    return dataclasses.replace(
+        s, u=u_new, lnl=lnl_new, lnz=lnz, done=s.done | newly_done,
+        converged=s.converged | newly_conv, n_deaths=n_deaths,
+        pending=pending, thresh=thresh, zombie=zombie, stall=stall,
+        ncall=ncall, i=s.i + 1, bounds=bounds, acc_ema=acc_ema,
+        ceff_mult=ceff_mult)
+
+
+def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
+                  seg_end: int) -> _State:
+    """Advance all runs until ``i >= seg_end`` or every run is done with
+    kill/record + candidate proposals only."""
+    cfg = cfg.resolved(state.u.shape[-1])
+    be = max(1, cfg.bound_every)
+    s = state
+    while _running(s, seg_end):
+        s = _core_step(s, loglike2, data, cfg, s.i % be == 0)
     return s
 
 
-def _slice_pass(s: _State, loglike2, data, cfg, chol, mu, rmax, act,
-                pending, zombie, thresh, need, n_rep):
+def _slice_pass(s: _State, u_geo, loglike2, data, cfg, chol, mu, rmax, act,
+                pending, zombie, thresh, need, n_rep, wrap):
     """Advance ``kill_k`` slice chains per run from DISTINCT random
-    survivors and insert the moved endpoints into the pending zombie
-    slots.  Returns ``(u, lnl, pending, n_ins, nc)``."""
+    survivors (read from ``u_geo``, the minimal-image live points) and
+    insert the moved endpoints into the pending zombie slots.  Returns
+    ``(u, lnl, zombie, pending, n_ins, nc)``."""
     R, L, D = s.u.shape
     C = cfg.kill_k
     rr = torch.arange(R, device=s.u.device)
@@ -761,23 +912,24 @@ def _slice_pass(s: _State, loglike2, data, cfg, chol, mu, rmax, act,
     rscore = _rand(s.gen, (R, L), s.u) + zombie.to(s.u.dtype) * 2.0
     order = torch.argsort(rscore, dim=1)                     # [R, L]
     sel = order[:, :C].T                                     # [C, R]
-    x = s.u[rrc, sel]
+    x = u_geo[rrc, sel]
     lnl_x = s.lnl[rrc, sel]
     z = _whiten(chol, (x - mu[None]) * act)
     x, lnl_x, nc, moved = _slice_chains(
         s.gen, loglike2, data, s.lnl_shift, x, z, lnl_x,
         thresh[None, :].expand(C, R), (~need)[None, :].expand(C, R),
         chol, rmax, act, n_rep, cfg,
-        u_all=s.u, order=order, n_surv=L - pending,
+        u_all=s.u, order=order, n_surv=L - pending, wrap=wrap,
     )
+    x = _wrap_pts(x, wrap)
     okf = moved & need[None, :]
     rankf = torch.cumsum(okf.to(torch.int32), dim=0)         # [C, R]
     usef = okf & (rankf <= pending[None, :])
     pos = torch.clamp(L - rankf, 0, L - 1).long()
     slotf = torch.gather(order, 1, pos.T).T                  # [C, R]
-    u_new, lnl_new = _fill(s, rrc, slotf, x, lnl_x, usef, zombie)
+    u_new, lnl_new, zombie = _fill(s, rrc, slotf, x, lnl_x, usef, zombie)
     n_ins = torch.sum(usef, dim=0, dtype=torch.int32)
-    return u_new, lnl_new, pending - n_ins, n_ins, nc
+    return u_new, lnl_new, zombie, pending - n_ins, n_ins, nc
 
 
 def ns_segment_slice(state: _State, loglike2, data, cfg: NSConfig,
@@ -790,6 +942,7 @@ def ns_segment_slice(state: _State, loglike2, data, cfg: NSConfig,
     lnx_tab, lnw_tab = _tables(cfg, L, like)
     rr = torch.arange(R, device=like.device)
     act, act_np = _act_arrays(cfg, D, like)
+    wrap = _wrap_vec(cfg, D, like)
     n_rep = (cfg.n_repeats if cfg.method == "slice"
              else cfg.fallback_repeats)
     sbe = max(1, cfg.slice_bound_every)
@@ -797,14 +950,15 @@ def ns_segment_slice(state: _State, loglike2, data, cfg: NSConfig,
     while _running(s, seg_end):
         lnz, n_deaths, pending, zombie, thresh = _kill_record(s, cfg, lnw_tab,
                                                                rr)
+        u_geo = _recenter(s.u, wrap)
         if sbe == 1 or s.i % sbe == 0:
-            chol, mu, rmax = _slim_bounds(s.u, zombie, act, act_np, cfg)
+            chol, mu, rmax = _slim_bounds(u_geo, zombie, act, act_np, cfg)
         else:
             chol, mu, rmax = s.bounds
         need = (~s.done) & (pending > 0)
-        u_new, lnl_new, pending, n_ins, nc = _slice_pass(
-            s, loglike2, data, cfg, chol, mu, rmax, act, pending, zombie,
-            thresh, need, n_rep)
+        u_new, lnl_new, zombie, pending, n_ins, nc = _slice_pass(
+            s, u_geo, loglike2, data, cfg, chol, mu, rmax, act, pending,
+            zombie, thresh, need, n_rep, wrap)
         stall = torch.where(
             need & (n_ins == 0) & (pending > 0), s.stall + 1,
             torch.where(n_ins > 0, 0, s.stall)).to(torch.int32)
@@ -826,7 +980,8 @@ def ns_rebuild_bounds(state: _State, cfg: NSConfig):
     cfg = cfg.resolved(D)
     like = state.u
     act, act_np = _act_arrays(cfg, D, like)
-    bounds = _compute_bounds(state.u, state.zombie, act, act_np, cfg)
+    u_geo = _recenter(state.u, _wrap_vec(cfg, D, like))
+    bounds = _compute_bounds(u_geo, state.zombie, act, act_np, cfg)
     lnvol_sum = torch.logsumexp(bounds[3], dim=-1)
     d_act = float(act_np.sum())
     lnball = float(0.5 * d_act * np.log(np.pi)
@@ -845,18 +1000,25 @@ def ns_slice_fill(state: _State, loglike2, data, cfg: NSConfig) -> _State:
     from the cached global geometry.  Nothing pending leaves the state
     unchanged (the JAX package's masked pass evaluates nothing then), so
     that case is decided on the host and skipped."""
-    R, L, D = state.u.shape
-    cfg = cfg.resolved(D)
-    s = state
-    need = (~s.done) & (s.pending > 0)
+    need = (~state.done) & (state.pending > 0)
     if not bool(need.any()):
-        return s
+        return state
+    return _slice_fill_pass(state, loglike2, data,
+                            cfg.resolved(state.u.shape[-1]))
+
+
+def _slice_fill_pass(s: _State, loglike2, data, cfg: NSConfig) -> _State:
+    """:func:`ns_slice_fill` without the host's check: masked, it leaves
+    every field but the generator as it is when nothing is pending.
+    ``cfg`` is resolved."""
+    R, L, D = s.u.shape
+    need = (~s.done) & (s.pending > 0)
     act, _ = _act_arrays(cfg, D, s.u)
+    wrap = _wrap_vec(cfg, D, s.u)
     chol, mu, rmax = _global_ell(s.bounds)
-    zombie = s.zombie.clone()
-    u_new, lnl_new, pending, n_ins, nc = _slice_pass(
-        s, loglike2, data, cfg, chol, mu, rmax, act, s.pending, zombie,
-        s.thresh, need, cfg.fallback_repeats)
+    u_new, lnl_new, zombie, pending, n_ins, nc = _slice_pass(
+        s, _recenter(s.u, wrap), loglike2, data, cfg, chol, mu, rmax, act,
+        s.pending, s.zombie, s.thresh, need, cfg.fallback_repeats, wrap)
     return dataclasses.replace(
         s, u=u_new, lnl=lnl_new, zombie=zombie, pending=pending,
         ncall=s.ncall + nc,
@@ -874,6 +1036,32 @@ def ns_segment(state: _State, loglike2, data, cfg: NSConfig,
     while _running(s, seg_end):
         s = _segment_core(s, loglike2, data, cfg, min(s.i + block, seg_end))
         s = ns_slice_fill(s, loglike2, data, cfg)
+    return s
+
+
+def _traced_block(s: _State, loglike2, data, cfg: NSConfig,
+                  n_iters: int) -> _State:
+    """One pass of the traced mode's loop (the body of the JAX package's
+    ``ns_segment``): ``n_iters`` masked candidate iterations, then one
+    unconditional masked slice fill.  The host counter ``i`` decides the
+    bound refreshes and nothing else.  ``cfg`` is resolved."""
+    be = max(1, cfg.bound_every)
+    for _ in range(n_iters):
+        s = _core_step(s, loglike2, data, cfg, s.i % be == 0)
+    return _slice_fill_pass(s, loglike2, data, cfg)
+
+
+def ns_traced(state: _State, loglike2, data, cfg: NSConfig) -> _State:
+    """The traced mode's plain block loop: blocks of ``block_iters``
+    (:func:`_traced_block`) until every run is done or ``i`` reaches
+    ``max_iter``, the JAX package's ``ns_segment(state, ..., max_iter)``.
+    ``graphs.run_traced`` runs the same blocks on a static state."""
+    cfg = cfg.resolved(state.u.shape[-1])
+    block = max(1, cfg.block_iters)
+    s = state
+    while _running(s, cfg.max_iter):
+        s = _traced_block(s, loglike2, data, cfg,
+                          min(block, cfg.max_iter - s.i))
     return s
 
 
@@ -978,6 +1166,53 @@ def _slim(bounds):
     return bounds[1][:, 0], bounds[0][:, 0], bounds[2][:, 0]
 
 
+#: stable wrappers, so a graph captured for one call of ``run_nested``
+#: serves the next call with the same likelihood (see ``graphs.py``)
+_WRAPPERS = {}
+_WRAPPERS_CAP = 16
+
+
+def _memo(key, make):
+    """The wrapper cached under ``key`` (built by ``make``), holding the
+    objects whose ``id`` is in the key so no id is reused."""
+    if key not in _WRAPPERS:
+        while len(_WRAPPERS) >= _WRAPPERS_CAP:
+            _WRAPPERS.pop(next(iter(_WRAPPERS)))
+        _WRAPPERS[key] = make()
+    return _WRAPPERS[key][0]
+
+
+def _normalize_loglike(loglike, data):
+    """``loglike(u, data)`` from either form of the caller's likelihood,
+    with a stable identity per likelihood."""
+    if data is not None:
+        return loglike
+    return _memo(("plain", id(loglike)),
+                 lambda: ((lambda u, _data: loglike(u)), loglike))
+
+
+def _floored(loglike2, log_zero: float):
+    """MultiNest's logZero: likelihoods at or below ``log_zero`` become
+    the sampler's log-zero sentinel, so no such point is ever accepted
+    or adds evidence (one wrapper per likelihood and floor)."""
+    def make():
+        def loglike_lz(u, d):
+            v = loglike2(u, d)
+            return torch.where(v > log_zero, v, _NEG)
+        return loglike_lz, loglike2
+
+    return _memo(("log_zero", id(loglike2), float(log_zero)), make)
+
+
+def _apply_active(state: _State, active) -> _State:
+    """Rows of ``active`` that are False are born done."""
+    if active is not None:
+        act_rows = torch.as_tensor(np.asarray(active, dtype=bool),
+                                   device=state.u.device)
+        state.done = state.done | ~act_rows
+    return state
+
+
 def run_nested(
     gen: torch.Generator,
     loglike: Callable,
@@ -1000,30 +1235,36 @@ def run_nested(
     is healthy, then the kill+slice program, with zero-eval probes that
     switch back when the estimated acceptance recovers and a short
     probation segment confirms it; straggler runs are compacted into
-    power-of-four batch classes.  ``active`` marks rows that are born
-    done (padding of a partial batch).  The traced mode
-    (``segment_iters=0``) is not ported (ROADMAP.md Queue 1 item 9).
+    power-of-four batch classes.  ``segment_iters=0`` runs the traced
+    mode instead: blocks of ``block_iters`` candidate iterations and a
+    masked slice fill, with neither regime switch nor compaction, until
+    every run is done (``graphs.run_traced``: one captured CUDA graph per
+    block on the card).  ``active`` marks rows that are born done
+    (padding of a partial batch).
     """
-    if not (segment_iters and segment_iters > 0):
-        raise NotImplementedError(
-            "run_nested: only the segmented mode (segment_iters > 0) is "
-            "ported to nestfit_tpu_torch (ROADMAP.md Queue 1 item 9)")
     cfg = config.resolved(ndim)
-    if data is None:
-        loglike2 = lambda u, _data: loglike(u)  # noqa: E731
-    else:
-        loglike2 = loglike
-    auto = cfg.method == "auto"
+    loglike2 = _normalize_loglike(loglike, data)
+    if cfg.log_zero > -1e60:
+        loglike2 = _floored(loglike2, cfg.log_zero)
+
+    if not (segment_iters and segment_iters > 0):
+        from nestfit_tpu_torch.sampling import graphs
+
+        state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
+        state = _apply_active(state, active)
+        return ns_finalize(graphs.run_traced(state, loglike2, data, cfg),
+                           cfg)
+
+    # ceff mode keeps rejection sampling alive by construction (the
+    # adaptive shrink holds acceptance at its target): no regime switch
+    auto = cfg.method == "auto" and not cfg.ceff
     mode = "slice" if cfg.method == "slice" else "cand"
     margin = 1.0 if cfg.fallback_repeats <= 3 else 0.6
     acc_thresh = cfg.cand_min_acc if cfg.cand_min_acc > 0 \
         else margin / (cfg.fallback_repeats * 2.6 + 0.6)
 
-    state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
-    if active is not None:
-        act_rows = torch.as_tensor(np.asarray(active, dtype=bool),
-                                   device=state.u.device)
-        state.done = state.done | ~act_rows
+    state = _apply_active(ns_init(gen, loglike2, data, ndim, n_runs, cfg,
+                                  dtype), active)
 
     acc = None                            # full-size accumulator
     orig_idx = np.arange(n_runs)          # current row -> original run

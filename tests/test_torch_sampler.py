@@ -1,6 +1,7 @@
 """Port parity: the nested sampler's deterministic pieces against the JAX
-package (state carried across through ``convert.py``), and the port's
-segmented sampler on analytic Gaussian evidences.
+package (state carried across through ``convert.py``), the port's
+segmented sampler on analytic Gaussian evidences, and the JAX package's
+tests of the ``efr``, ``pwrap_dims``, ``ceff`` and ``log_zero`` knobs.
 
 The two packages draw from different random streams, so whole runs are
 compared statistically; everything that involves no randomness is
@@ -45,17 +46,116 @@ def test_weight_tables_and_resolved_match_jax(ndim):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("knob", [{"pwrap_dims": (0,)}, {"ceff": True},
-                                  {"efr": 0.3}, {"log_zero": -1e3}])
-def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.NSConfig(**knob)
+def _gauss_torch(sigma, mu=0.5):
+    def loglike(u):
+        return -0.5 * torch.sum((u - mu) ** 2, dim=-1) / sigma**2
+    return loglike
 
 
-def test_traced_mode_raises():
-    g = torch.Generator()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.run_nested(g, lambda u: -u.sum(-1), 2, 2, segment_iters=0)
+@pytest.mark.parametrize("segment_iters", [0, 250])
+def test_efr_enlargement_converges(segment_iters):
+    """The JAX package's test (its traced mode), and the segmented mode:
+    enlarged bounding volumes (efr = 0.3) leave the evidence within the
+    sampler's error class."""
+    D, sig = 4, 0.4
+
+    def ll(u):
+        x = (u - 0.5) * 8.0
+        return -0.5 * torch.sum((x / sig) ** 2, dim=-1)
+
+    lnz_true = D * (np.log(np.sqrt(2 * np.pi) * sig) - np.log(8.0))
+    res = ts.run_nested(torch.Generator().manual_seed(3), ll, D, 8,
+                        ts.NSConfig(nlive=200, tol=0.5, efr=0.3),
+                        segment_iters=segment_iters)
+    lnz = res.lnz.numpy()
+    assert res.converged.all()
+    assert abs(lnz.mean() - lnz_true) < 0.35, (lnz.mean(), lnz_true)
+    assert np.max(np.abs(lnz - lnz_true)) < 0.9, (lnz, lnz_true)
+
+
+@pytest.mark.parametrize("method", ["ellipsoid", "slice"])
+def test_pwrap_periodic_evidence(method):
+    """The JAX package's test (traced mode): a Gaussian straddling the
+    0/1 seam on two periodic dims; with ``pwrap_dims`` the evidence
+    matches the analytic value and the posterior circular mean lands on
+    the seam mode."""
+    D, sigma = 4, 0.05
+    mu = torch.tensor([0.02, 0.98, 0.5, 0.5], dtype=torch.float64)
+
+    def loglike(u):
+        d = u - mu
+        # periodic dims use the nearest-image distance
+        d = torch.cat([d[..., :2] - torch.round(d[..., :2]), d[..., 2:]],
+                      dim=-1)
+        return -0.5 * torch.sum(d**2, dim=-1) / sigma**2
+
+    cfg = ts.NSConfig(nlive=200, tol=0.1, method=method, pwrap_dims=(0, 1))
+    res = ts.run_nested(torch.Generator().manual_seed(7), loglike, D, 8, cfg,
+                        dtype=torch.float64, segment_iters=0)
+    lnz_true = 0.5 * D * np.log(2 * np.pi * sigma**2)
+    lnz = res.lnz.numpy()
+    err = res.lnz_err.numpy()
+    assert res.converged.all()
+    assert np.all(np.abs(lnz - lnz_true) < 5 * np.maximum(err, 0.05)), (
+        lnz, lnz_true, err)
+    u_post = res.dead_u.numpy()
+    lnw = res.dead_lnw.numpy() + res.dead_lnl.numpy()
+    w = np.exp(lnw - lnw.max(axis=-1, keepdims=True))
+    w = w / w.sum(axis=-1, keepdims=True)
+    ang = 2 * np.pi * u_post[..., 0]
+    circ = np.arctan2((w * np.sin(ang)).sum(-1),
+                      (w * np.cos(ang)).sum(-1)) / (2 * np.pi) % 1.0
+    dist = np.abs(circ - 0.02)
+    dist = np.minimum(dist, 1.0 - dist)
+    assert np.all(dist < 0.02), circ
+
+
+@pytest.mark.parametrize("segment_iters", [100, 0])
+def test_ceff_constant_efficiency_mode(segment_iters):
+    """The JAX package's test (segmented mode), and the traced mode:
+    with ``ceff`` the proposal volume adapts so candidate acceptance
+    tracks the efr target: few evaluations per death, and an evidence in
+    the parameter-estimation accuracy class."""
+    ndim, sigma, R = 8, 0.06, 16
+    cfg = ts.NSConfig(nlive=100, tol=0.5, ceff=True, efr=0.3)
+    res = ts.run_nested(torch.Generator().manual_seed(31),
+                        _gauss_torch(sigma), ndim, R, cfg,
+                        dtype=torch.float64, segment_iters=segment_iters)
+    lnz_true = 0.5 * ndim * np.log(2 * np.pi * sigma**2)
+    lnz = res.lnz.numpy()
+    assert res.converged.all()
+    assert abs(lnz.mean() - lnz_true) < 1.5, (lnz.mean(), lnz_true)
+    epd = res.ncall.numpy().astype(np.int64) / np.maximum(
+        res.n_dead.numpy(), 1)
+    assert epd.mean() < 15.0, epd
+
+
+def test_log_zero_floor():
+    """The JAX package's test (traced mode): a floor below every
+    achievable lnL changes nothing; a floor at lnL = -5 truncates the
+    Gaussian's tail, biased high by the likelihood-plateau deaths exactly
+    as the JAX test's model predicts."""
+    ndim, sigma, R = 2, 0.05, 8
+    nlive = 200
+    ll = _gauss_torch(sigma)
+
+    def run(**kw):
+        return ts.run_nested(torch.Generator().manual_seed(9), ll, ndim, R,
+                             ts.NSConfig(nlive=nlive, tol=0.1, **kw),
+                             dtype=torch.float64, segment_iters=0)
+
+    base, inert, cut = run(), run(log_zero=-1e9), run(log_zero=-5.0)
+    assert np.allclose(base.lnz.numpy(), inert.lnz.numpy(), atol=1e-12)
+    lnz_trunc = np.log(2 * np.pi * sigma**2 * -np.expm1(-5.0))
+    f_above = 10.0 * np.pi * sigma**2       # area with lnL > -5
+    k = nlive // 4                          # resolved kill_k
+    n_plateau = nlive * (1.0 - f_above)     # expected plateau deaths
+    lnx_ns = -n_plateau * np.log(nlive / (nlive - k)) / k
+    lnz_expected = lnz_trunc + (lnx_ns - np.log(f_above))
+    lnz = cut.lnz.numpy()
+    assert cut.converged.all()
+    assert lnz.mean() > lnz_trunc
+    assert abs(lnz.mean() - lnz_expected) < 0.2, (lnz.mean(), lnz_expected)
 
 
 def _gauss_jax(u):

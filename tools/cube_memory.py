@@ -11,11 +11,13 @@ is split where ``fit_batch`` hands the sampler's result to
 ``ns_finalize``), the bytes its ``NSResult`` holds, and the posterior
 products' own peak.  Each is printed beside the unit ``R x (max_iter +
 nlive) x D`` float32 (one copy of the dead and live points), with the
-allocator's reserved peak and its retries.  Each row count runs with
-the products in their row slices (``results._PRODUCTS_BYTES`` of points
-a slice, as shipped) and, with ``--one-pass``, once more over every row
-at once.  A run that runs out of memory is reported and the next one
-runs.
+allocator's reserved peak and its retries.  After the products,
+``posterior_modes`` runs on the same result, and its peak above the
+held bytes and its wall are printed too.  Each row count runs with the
+products and the modes in their row slices (``results._PRODUCTS_BYTES``
+of points a slice, as shipped) and, with ``--one-pass``, once more over
+every row at once.  A run that runs out of memory is reported and the
+next one runs.
 
 Run from the root of the repository, on a card::
 
@@ -90,6 +92,17 @@ def measure(rows, nlive, one_pass):
         out["products_peak_gib"] = torch.cuda.max_memory_allocated() / GIB
         out["products_above_held_gib"] = (
             torch.cuda.max_memory_allocated() - held) / GIB
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        modes = results.posterior_modes(ns, transform)
+        torch.cuda.synchronize()
+        out["modes_s"] = time.perf_counter() - t0
+        out["modes_above_held_gib"] = (
+            torch.cuda.max_memory_allocated() - held) / GIB
+        out["modes_finite"] = bool(
+            torch.isfinite(modes.mode_lnz).any(dim=1).all())
+        del modes
         return prod
 
     torch.cuda.empty_cache()
@@ -118,7 +131,8 @@ def measure(rows, nlive, one_pass):
         reserved_peak_gib=st.get("reserved_bytes.all.peak", 0) / GIB,
         alloc_retries=st.get("num_alloc_retries", 0),
         ooms=st.get("num_ooms", 0))
-    for k in ("sampler_peak_gib", "products_above_held_gib"):
+    for k in ("sampler_peak_gib", "products_above_held_gib",
+              "modes_above_held_gib"):
         if k in out:
             out[k.replace("_gib", "_units")] = out[k] * GIB / unit
     torch.cuda.empty_cache()
