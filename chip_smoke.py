@@ -65,7 +65,20 @@ Phases, in order; any failure exits non-zero:
                evidence floor and the boundary refits.  Walls per bucket,
                batch and rung, launches, retry and boundary rows, and the
                peak device memory are printed.
-10. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
+10. products -- the map products (``cube/products.py``) of phase *cube*'s
+               records, built into a ``FitTable`` with
+               ``FitTable.from_records`` (no ``h5py`` on the card's machine)
+               and run through ``postprocess_table`` (both smoothings a
+               1-px Gaussian): each case on the card and on the CPU, every
+               product held between the two (integers and NaN masks equal,
+               float64 maps rtol 1e-9, float32 products rtol 1e-5, model
+               products rtol 1e-5 / atol 1e-5), the store spec's shapes,
+               ``nbest`` the records' decision, ``nbest_MAP`` finite exactly
+               on components below ``conv_nbest``; then the synthetic
+               case's records tiled into a 256x256 map (65,536 px) on the
+               card: the wall of each step, the bytes copied host to
+               device, the peak device memory.
+11. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
 
@@ -75,6 +88,7 @@ The line before last is ``{"kernels": [...]}``; the last line is
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -103,6 +117,10 @@ BRIGHT = [(10, 10), (9, 10), (10, 9), (11, 10)]        # (i_lon, i_lat)
 VOFF_BAR, SIGM_BAR = 0.15, 0.25
 NBEST2_SHARE = 0.05      # the fixture's truth has one component
 CUBE_PIXELS = 1024       # the synthetic cube of phase cube, 32 x 32
+PRODUCT_SIDE = 256       # phase products: 65,536 px, the survey's 1e4-1e5
+PRODUCT_KERNEL = 1.0     # Gaussian sigma (px) of both product smoothings
+PDF_BINS = 200           # edges of the products' histograms
+MODEL_PRODUCTS = ("peak_intensity", "integrated_intensity", "hf_deblended")
 TRACED_PIXELS = 1024     # phase traced at full width
 GRAPH_PIXELS = 64        # phase traced's graph-vs-eager and knob runs
 
@@ -1034,10 +1052,11 @@ def check_cube(label, fitter, batches, valid_ix):
     return recs, nbest, hist
 
 
-def phase_cube(seed, n_pix, counters):
+def phase_cube(seed, n_pix, counters, keep=None):
     """The cube pipeline at ``CubeFitter``'s production defaults on the
     fixture cutouts and on the synthetic NH3 cube.  Returns the launches
-    of the two cases."""
+    of the two cases; ``keep`` receives each case's ``(stack, fitter,
+    batches)`` for phase *products*."""
     from nestfit_tpu_torch.cube import CubeFitter, CubeStack, DataCube, \
         NoiseMap, read_fits
     from nestfit_tpu_torch.models import AmmoniaRunner
@@ -1061,6 +1080,8 @@ def phase_cube(seed, n_pix, counters):
     batches, launches_a, _, _ = run_cube("cube fixture", fitter, seed,
                                          counters)
     recs, nbest, hist = check_cube("cube fixture", fitter, batches, valid_ix)
+    if keep is not None:
+        keep["fixture"] = (stack, fitter, batches)
     n_lat = stack.spatial_shape[1]
     for il, ib in BRIGHT:
         pix = il * n_lat + ib
@@ -1089,6 +1110,8 @@ def phase_cube(seed, n_pix, counters):
           flush=True)
     batches, launches_b, _, _ = run_cube("cube synth", fitter, seed, counters)
     check_cube("cube synth", fitter, batches, np.arange(n_pix))
+    if keep is not None:
+        keep["synth"] = (stack, fitter, batches)
     for b in batches:
         for r in b.rungs:
             if r["converged"] < CONVERGED_SHARE * r["R"] or \
@@ -1098,6 +1121,215 @@ def phase_cube(seed, n_pix, counters):
                      f"not converged, {r['unconverged_short']} of them short "
                      "of the death budget")
     return [launches_a, launches_b]
+
+
+def product_runner(stack, device):
+    """The one-component NH3 runner the products predict with."""
+    from nestfit_tpu_torch.models import AmmoniaRunner
+
+    spectra = tuple(AmmoniaRunner.model.make_model_spectrum(
+        c.xarr, np.zeros_like(c.xarr), 0.1, trans_id=c.trans_id,
+        device=device) for c in stack.cubes)
+    return AmmoniaRunner(spectra, None, ncomp=1, device=device)
+
+
+def product_table(stack, fitter, batches, n_lon, n_lat):
+    from nestfit_tpu_torch.cube.products import FitTable
+
+    model = fitter.runner_cls.model
+    return FitTable.from_records(batches, n_lon, n_lat, fitter.ncomp_max,
+                                 model.N, fitter.lnZ_thresh, model,
+                                 with_posteriors=True)
+
+
+def check_product_shapes(label, prod, n_lon, n_lat, fitter, stack):
+    """Every product has its store-spec shape (tests/test_fit_cube.py)."""
+    m, p = fitter.ncomp_max, fitter.runner_cls.model.N
+    M, h = len(prod["marg_quantiles"]), PDF_BINS - 1
+    nb = prod["pdf_bins"].shape[1]
+    want = {"evidence": (m + 1, n_lat, n_lon), "nbest": (n_lat, n_lon),
+            "conv_nbest": (n_lat, n_lon), "conv_evidence": (m + 1, n_lat,
+                                                            n_lon),
+            "nbest_MAP": (m, p, n_lat, n_lon), "marg_quantiles": (M,),
+            "nbest_marginals": (m, p, M, n_lat, n_lon), "pdf_bins": (p, h),
+            "post_pdfs": (m, m, p, h, n_lat, n_lon),
+            "conv_post_pdfs": (m, m, p, h, n_lat, n_lon),
+            "conv_marginals": (m, m, p, M, n_lat, n_lon),
+            "peak_intensity": (2, m, n_lat, n_lon),
+            "hf_deblended": (2, m, nb, n_lat, n_lon)}
+    for k in ("evidence_err", "BIC", "AIC", "AICc"):
+        want[k] = want["evidence"]
+    want["nbest_bestfit"] = want["nbest_MAP"]
+    want["integrated_intensity"] = want["peak_intensity"]
+    for c in stack.cubes:
+        want[f"model_spec/trans{c.trans_id}"] = (m, c.nchan, n_lat, n_lon)
+    got = {k: tuple(v.shape) for k, v in prod.items()}
+    if got != want:
+        fail(f"{label}: product shapes {got}, the store spec {want}")
+
+
+def check_product_gates(label, prod, batches, n_lon, n_lat, ncomp):
+    """``nbest`` is each pixel's ladder decision in the records (-1 where
+    no pixel was fitted); ``nbest_MAP`` is finite on components 0 ..
+    conv_nbest - 1 of every pixel and NaN elsewhere."""
+    import torch
+
+    want = np.full((n_lat, n_lon), -1, dtype=np.int32)
+    for b in batches:
+        il, ib = np.divmod(b.pixel_ix, n_lat)
+        want[ib, il] = b.nbest
+    if not np.array_equal(prod["nbest"].cpu().numpy(), want):
+        fail(f"{label}: the nbest product is not the records' ladder "
+             "decision")
+    conv, pmap = prod["conv_nbest"], prod["nbest_MAP"]
+    for c in range(ncomp):
+        sel = conv > c
+        if not (torch.isfinite(pmap[c]).all(0) == sel).all() or \
+                not (torch.isnan(pmap[c]).all(0) == ~sel).all():
+            fail(f"{label}: nbest_MAP component {c} is not finite exactly "
+                 "where conv_nbest exceeds it")
+
+
+def compare_products(label, card, cpu):
+    """Card against CPU, product by product, at its bar: integers and NaN
+    masks equal; float64 maps rtol 1e-9, atol 1e-12; float32 products
+    rtol 1e-5, atol 1e-6; model-based products rtol 1e-5, atol 1e-5.
+    ``conv_marginals`` inverts a float32 CDF whose running sum reaches
+    its total (q = 1) at a bin that an ulp of ``conv_post_pdfs`` can move:
+    the card's is held against the CPU's quantile step on the card's own
+    ``conv_post_pdfs``, and the jumps end to end must stay under 0.1%."""
+    import torch
+    from nestfit_tpu_torch.cube.products import pdf_quantiles
+
+    worst = {}
+    for key, g in card.items():
+        w = cpu[key]
+        g = g.cpu()
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{label} {key}: card {g.dtype} {tuple(g.shape)}, CPU "
+                 f"{w.dtype} {tuple(w.shape)}")
+        if not g.is_floating_point():
+            if not torch.equal(g, w):
+                fail(f"{label} {key}: card and CPU differ")
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            fail(f"{label} {key}: NaN masks differ")
+        if key in MODEL_PRODUCTS or key.startswith("model_spec/"):
+            rtol, atol = 1e-5, 1e-5
+        elif g.dtype == torch.float32:
+            rtol, atol = 1e-5, 1e-6
+        else:
+            rtol, atol = 1e-9, 1e-12
+        ok = torch.isclose(g, w, rtol=rtol, atol=atol, equal_nan=True)
+        worst[key] = float(torch.nan_to_num((g - w).abs().double()).max())
+        if key == "conv_marginals":
+            again = pdf_quantiles(cpu["pdf_bins"], cpu["marg_quantiles"],
+                                  card["conv_post_pdfs"].cpu())
+            if not torch.isclose(g, again, rtol=rtol, atol=atol,
+                                 equal_nan=True).all():
+                fail(f"{label} conv_marginals: the card's quantile step "
+                     "differs from the CPU's on the same input")
+            jumps = int((~ok).sum())
+            print(f"{label}: conv_marginals end to end, {jumps} of "
+                  f"{ok.numel()} values moved by the float32 CDF", flush=True)
+            if jumps > 1e-3 * ok.numel():
+                fail(f"{label} conv_marginals: {jumps} values beyond the bar")
+        elif not ok.all():
+            fail(f"{label} {key}: {int((~ok).sum())} values beyond rtol "
+                 f"{rtol:g}, atol {atol:g}; max |diff| {worst[key]:.3g}")
+    print(f"{label}: card against CPU, every product within its bar; max "
+          f"|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()
+                                  if v), flush=True)
+
+
+def tile_records(batches, side, reps):
+    """``batches`` of a side x side map copied into a (reps * side)^2 map,
+    tile by tile, pixel ids offset (the records themselves are shared)."""
+    n = side * reps
+    out = []
+    for tx in range(reps):
+        for ty in range(reps):
+            def move(pix):
+                il, ib = np.divmod(np.asarray(pix), side)
+                return (il + side * tx) * n + ib + side * ty
+            for b in batches:
+                out.append(dataclasses.replace(
+                    b, pixel_ix=move(b.pixel_ix),
+                    records=[(int(move(p)), c, r) for p, c, r in b.records]))
+    return out
+
+
+def phase_products(cases, counters):
+    """The map products of phase *cube*'s records on the card and on the
+    CPU, then at 65,536 pixels on the card.  Returns its launches."""
+    import torch
+    from nestfit_tpu_torch.cube.products import postprocess_table
+
+    for fn in counters.values():
+        fn.launches = 0
+    for label, (stack, fitter, batches) in cases.items():
+        n_lon, n_lat = stack.spatial_shape
+        out = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            out[dev] = postprocess_table(
+                product_table(stack, fitter, batches, n_lon, n_lat), stack,
+                product_runner(stack, dev), evid_kernel=PRODUCT_KERNEL,
+                post_kernel=PRODUCT_KERNEL, device=dev)
+            print(f"products {label}: {n_lon}x{n_lat} px on {dev}, "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+        name = f"products {label}"
+        check_product_shapes(name, out["cuda"], n_lon, n_lat, fitter,
+                             stack)
+        check_product_gates(name, out["cuda"], batches, n_lon, n_lat,
+                            fitter.ncomp_max)
+        compare_products(name, out["cuda"], out["cpu"])
+        del out
+
+    # the synthetic cube's records as a map users work at
+    stack, fitter, batches = cases["synth"]
+    side = stack.spatial_shape[1]
+    reps = PRODUCT_SIDE // side
+    if stack.spatial_shape != (side, side) or reps * side != PRODUCT_SIDE:
+        fail(f"products tiled: a {stack.spatial_shape} map does not tile "
+             f"a {PRODUCT_SIDE}-px square")
+    tiled = tile_records(batches, side, reps)
+    t0 = time.perf_counter()
+    tab = product_table(stack, fitter, tiled, PRODUCT_SIDE, PRODUCT_SIDE)
+    t_table = time.perf_counter() - t0
+    post_gb = sum(r["posteriors"].nbytes for r in tab.runs.values()) / 1e9
+    print(f"products tiled: {PRODUCT_SIDE}x{PRODUCT_SIDE} = {tab.n_pix} px "
+          f"({reps}x{reps} copies of the {side}x{side} synth map), table "
+          f"from records {t_table:.2f} s on the host, posteriors "
+          f"{post_gb:.2f} GB float32, n_post "
+          f"{tab.runs[1]['posteriors'].shape[1]}", flush=True)
+    runner = product_runner(stack, "cuda")
+    walls = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    prod = postprocess_table(tab, stack, runner, evid_kernel=PRODUCT_KERNEL,
+                             post_kernel=PRODUCT_KERNEL, device="cuda",
+                             walls=walls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"products tiled: chain wall {wall:.2f} s on the card; per step "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
+          flush=True)
+    print(f"products tiled: host -> device {tab.h2d_bytes / 1e9:.3f} GB "
+          f"from the table; peak device memory {peak / 2**30:.3f} GiB above "
+          f"the {base / 2**30:.3f} GiB held before; card: "
+          f"{smi('name,power.limit')}", flush=True)
+    check_product_shapes("products tiled", prod, PRODUCT_SIDE, PRODUCT_SIDE,
+                         fitter, stack)
+    check_product_gates("products tiled", prod, tiled, PRODUCT_SIDE,
+                        PRODUCT_SIDE, fitter.ncomp_max)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"products: kernel launches {json.dumps(launches)} (the path runs "
+          "the plain model_predict, no hand-written kernel)", flush=True)
+    return launches
 
 
 def phase_profile(seed, n_pix, ncomp):
@@ -1200,8 +1432,13 @@ def main():
     runs += phase_traced(args.seed, counters, ladder)
     print(f"phase traced: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    runs += phase_cube(args.seed, CUBE_PIXELS, counters)
+    cube_cases = {}
+    runs += phase_cube(args.seed, CUBE_PIXELS, counters, cube_cases)
     print(f"phase cube: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs.append(phase_products(cube_cases, counters))
+    del cube_cases
+    print(f"phase products: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -1,8 +1,10 @@
 """Cube layer (port of ``nestfit_tpu/cube``): FITS cubes, the cube stack,
-the batched ``CubeFitter`` ladder and the chunked HDF5 store.
+the batched ``CubeFitter`` ladder, the chunked HDF5 store and the map
+products.
 
-``HdfStore`` is resolved on first use: it is the only name that needs
-``h5py``, so the rest imports and runs without it.
+``HdfStore`` and the names of ``products`` are resolved on first use:
+the store is the only module that needs ``h5py``, so the rest imports
+and runs without it.
 """
 
 from nestfit_tpu_torch.cube.cube import (
@@ -20,4 +22,10 @@ def __getattr__(name):
         from nestfit_tpu_torch.cube.store import HdfStore
 
         return HdfStore
+    from nestfit_tpu_torch import _PRODUCT_NAMES
+
+    if name in _PRODUCT_NAMES:
+        from nestfit_tpu_torch.cube import products
+
+        return getattr(products, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

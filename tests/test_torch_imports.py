@@ -18,7 +18,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         nestfit_tpu_torch.__path__, "nestfit_tpu_torch."))
     assert "nestfit_tpu_torch.sampling.sampler" in mods
     for m in ("cube", "cube.cube", "cube.fits_io", "cube.fitter",
-              "cube.records", "cube.store"):
+              "cube.products", "cube.records", "cube.store", "synth",
+              "utils.logging"):
         assert f"nestfit_tpu_torch.{m}" in mods, m
     build = ROOT / "nestfit_tpu_torch" / "_build"
     before = sorted(build.glob("*")) if build.exists() else []
