@@ -78,7 +78,29 @@ Phases, in order; any failure exits non-zero:
                case's records tiled into a 256x256 map (65,536 px) on the
                card: the wall of each step, the bytes copied host to
                device, the peak device memory.
-11. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
+11. mesh    -- multi-device and multi-process fitting on the one card:
+               (a) dp: the NH3 rungs of phase *traced* on a dp = 2 mesh
+               (both rows on cuda:0, a host thread each), traced then
+               segmented rung 1, under the same gates and against the
+               no-mesh runs (walls side by side), each dp row keeping
+               both rungs' CUDA-graph programs, and a 64-px rung in
+               each mode on a (1, 1) mesh bit for bit equal to no mesh;
+               (b) sp: the likelihood over two channel slices against the
+               whole spectra at 51,200 proposals (NH3 and N2H+ through
+               K1, Gaussian through K4, rtol 1e-5), and a 64-px NH3 rung 2
+               on a (dp 1, sp 2) mesh in each mode against no mesh;
+               (c) hosts: two processes of this script
+               (``--host-worker``) joined by gloo on a localhost TCP
+               store, each fitting its ``host_shard`` stripe of phase
+               *cube*'s fixture case through the store-free path: one
+               record per valid pixel across them, seed streams that
+               differ, phase *cube*'s gates on the union; (d)
+               ``run_varnoise_sweep`` at its defaults and at the JAX
+               package's slow-test settings with that test's assertions;
+               (e) the IRDC transform through K2/K3 on 4,096 vectors
+               against the native C++ engine (built at first use) and
+               256 of them against the scalar oracle.
+12. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
 
@@ -123,6 +145,15 @@ PDF_BINS = 200           # edges of the products' histograms
 MODEL_PRODUCTS = ("peak_intensity", "integrated_intensity", "hf_deblended")
 TRACED_PIXELS = 1024     # phase traced at full width
 GRAPH_PIXELS = 64        # phase traced's graph-vs-eager and knob runs
+# phase mesh (e): the port's plain float32 transform against the native
+# engine's (tests/test_torch_native.py) and the scalar oracle
+# (tests/test_torch_oracle.py)
+NATIVE_INDEP_ATOL = 2e-2
+NATIVE_VOFF_MAX_CELLS, NATIVE_VOFF_MEDIAN_CELLS = 2.0, 1e-2
+ORACLE_VOFF_CELLS = 0.25
+SP_RTOL = 1e-5           # phase mesh (b): sp = 2 against sp = 1
+HOST_TIMEOUT = 600       # phase mesh (c): each worker process, seconds
+WALLS = {}               # rung label -> wall seconds (run_rung)
 
 
 def fail(msg):
@@ -595,14 +626,15 @@ def phase_forward(seed):
 
 
 def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
-             segment_iters=250):
+             segment_iters=250, mesh=None):
     """One ``fit_batch`` rung with every launch counter at 0 before it.
     Prints its wall, calls, convergence and launches (and, traced, its
     blocks, graph replays, done-mask reads, straggler blocks and peak
     memory); fails on a non-finite lnZ or posterior sample, on fewer
     than 98% converged runs or a stalled one, if a kernel in ``need``
     was never launched or one in ``idle`` was, or if a traced rung did
-    not run as CUDA graphs.  Returns ``(fit, launches)``."""
+    not run as CUDA graphs.  ``mesh`` passes on to ``fit_batch``; the wall
+    is kept in ``WALLS[label]``.  Returns ``(fit, launches)``."""
     import torch
     from nestfit_tpu_torch.sampling import fit_batch, graphs
 
@@ -614,9 +646,9 @@ def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fit = fit_batch(gen, runner, n_pix, cfg, segment_iters=segment_iters,
-                    device="cuda")
+                    device="cuda", mesh=mesh)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = WALLS[label] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     z = fit.lnz.cpu().numpy()
     ncall = fit.ns.ncall.cpu().numpy().astype(np.int64)
@@ -754,7 +786,7 @@ def phase_n2hp_ladder(seed, n_pix, counters):
     return launches
 
 
-def phase_traced(seed, counters, ladder):
+def phase_traced(seed, counters, ladder, keep=None):
     """The traced mode (``segment_iters=0``): blocks of candidate
     iterations and a slice fill, each a replayed CUDA graph.  (a) Graph
     against eager on the first 64 pixels of the NH3 ladder cube, rungs 1
@@ -762,7 +794,8 @@ def phase_traced(seed, counters, ladder):
     ladder's gates, each pixel's lnZ held against phase *ladder*'s
     segmented lnZ; (c) one 64-px rung 1 per sampler knob and a 64-px
     Gaussian rung 2 (K4 in the graph); (d) ``posterior_modes`` of the
-    full-width rung 2.  Returns the launches of (b) and (c)."""
+    full-width rung 2.  Returns the launches of (b) and (c); ``keep``
+    receives (b)'s ``(lnz, lnz_err)`` by ncomp for phase *mesh*."""
     import torch
     from nestfit_tpu_torch.priors import get_gaussian_priors, get_irdc_priors
     from nestfit_tpu_torch.sampling import NSConfig, graphs, posterior_modes
@@ -830,6 +863,9 @@ def phase_traced(seed, counters, ladder):
             + (["tapered_invert"] if ncomp == 2 else []),
             ["gauss_chi2_fused"], segment_iters=0)
         runs.append(launches)
+        if keep is not None:
+            keep[ncomp] = (fits[ncomp].lnz.cpu().numpy(),
+                           fits[ncomp].lnz_err.cpu().numpy())
         if ncomp in ladder and ladder[ncomp][0].shape == (n_pix,):
             z_seg, e_seg = ladder[ncomp]
             d = fits[ncomp].lnz.cpu().numpy() - z_seg
@@ -903,7 +939,7 @@ def ladder_decision(recs, thresh):
     return nbest
 
 
-def run_cube(label, fitter, seed, counters):
+def run_cube(label, fitter, seed, counters, host_shard=False):
     """Drive ``fitter._fit_batches`` over every valid pixel with the launch
     counters at 0, printing each batch and rung as it comes.  Returns
     ``(batches, launches, wall, peak bytes per batch)``."""
@@ -925,7 +961,7 @@ def run_cube(label, fitter, seed, counters):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for batch in fitter._fit_batches(seed):
+    for batch in fitter._fit_batches(seed, host_shard=host_shard):
         peaks.append(torch.cuda.max_memory_allocated())
         batches.append(batch)
         print(f"{label} batch {batch.chunk}: nlive {batch.nlive}, R "
@@ -1052,50 +1088,70 @@ def check_cube(label, fitter, batches, valid_ix):
     return recs, nbest, hist
 
 
-def phase_cube(seed, n_pix, counters, keep=None):
-    """The cube pipeline at ``CubeFitter``'s production defaults on the
-    fixture cutouts and on the synthetic NH3 cube.  Returns the launches
-    of the two cases; ``keep`` receives each case's ``(stack, fitter,
-    batches)`` for phase *products*."""
+def fixture_case():
+    """The committed cutouts through the port's FITS reader, and a
+    ``CubeFitter`` at its defaults on them: ``(stack, fitter, valid flat
+    pixel ids)``."""
     from nestfit_tpu_torch.cube import CubeFitter, CubeStack, DataCube, \
         NoiseMap, read_fits
     from nestfit_tpu_torch.models import AmmoniaRunner
     from nestfit_tpu_torch.priors import get_irdc_priors
-    from nestfit_tpu_torch.synth import make_synth_cube_arrays
 
-    # (a) the committed cutouts, through the port's FITS reader
     pb, _ = read_fits(FIXTURES / "pb_cutout.fits")
     nmap = NoiseMap.from_pbimg(FIXTURE_RMS, pb)
     stack = CubeStack([
         DataCube.from_fits(FIXTURES / f"nh3_{tag}_cutout.fits",
                            noise_map=nmap, trans_id=tid)
         for tid, tag in ((1, "11"), (2, "22"))])
-    truth, _ = read_fits(FIXTURES / "truth_params.fits")      # [5, b, l]
     fitter = CubeFitter(stack, get_irdc_priors(vsys=0.0, device="cuda"),
                         AmmoniaRunner)
     _, _, nan_mask, _ = stack.get_flat_batch()
-    valid_ix = np.flatnonzero(~nan_mask)
-    print(f"cube fixture: {stack.spatial_shape[0]}x{stack.spatial_shape[1]} "
-          f"px, {stack.cubes[0].nchan} ch, {valid_ix.size} valid", flush=True)
-    batches, launches_a, _, _ = run_cube("cube fixture", fitter, seed,
-                                         counters)
-    recs, nbest, hist = check_cube("cube fixture", fitter, batches, valid_ix)
-    if keep is not None:
-        keep["fixture"] = (stack, fitter, batches)
+    return stack, fitter, np.flatnonzero(~nan_mask)
+
+
+def check_fixture(label, fitter, batches, stack, valid_ix):
+    """Phase *cube*'s gates on the fixture's records: ``check_cube``, the
+    bright pixels at their truth, ``nbest`` 2 on at most 5% of a
+    one-component truth."""
+    from nestfit_tpu_torch.cube import read_fits
+
+    truth, _ = read_fits(FIXTURES / "truth_params.fits")      # [5, b, l]
+    recs, nbest, hist = check_cube(label, fitter, batches, valid_ix)
     n_lat = stack.spatial_shape[1]
     for il, ib in BRIGHT:
         pix = il * n_lat + ib
         best = recs[pix][1]["bestfit_params"]
         dv = abs(best[0] - truth[0, ib, il])
         ds = abs(best[4] - truth[4, ib, il])
-        print(f"cube fixture: pixel ({il}, {ib}) nbest {nbest[pix]}, voff "
+        print(f"{label}: pixel ({il}, {ib}) nbest {nbest[pix]}, voff "
               f"{best[0]:.4f} (truth {truth[0, ib, il]:.4f}), sigm "
               f"{best[4]:.4f} (truth {truth[4, ib, il]:.4f})", flush=True)
         if nbest[pix] < 1 or not (dv < VOFF_BAR and ds < SIGM_BAR):
-            fail(f"cube fixture: bright pixel ({il}, {ib}) off its truth")
+            fail(f"{label}: bright pixel ({il}, {ib}) off its truth")
     if hist[2:].sum() > NBEST2_SHARE * valid_ix.size:
-        fail(f"cube fixture: nbest 2 on {int(hist[2:].sum())} of "
+        fail(f"{label}: nbest 2 on {int(hist[2:].sum())} of "
              f"{valid_ix.size} pixels of a one-component truth")
+
+
+def phase_cube(seed, n_pix, counters, keep=None):
+    """The cube pipeline at ``CubeFitter``'s production defaults on the
+    fixture cutouts and on the synthetic NH3 cube.  Returns the launches
+    of the two cases; ``keep`` receives each case's ``(stack, fitter,
+    batches)`` for phase *products*."""
+    from nestfit_tpu_torch.cube import CubeFitter, CubeStack, DataCube
+    from nestfit_tpu_torch.models import AmmoniaRunner
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    # (a) the committed cutouts, through the port's FITS reader
+    stack, fitter, valid_ix = fixture_case()
+    print(f"cube fixture: {stack.spatial_shape[0]}x{stack.spatial_shape[1]} "
+          f"px, {stack.cubes[0].nchan} ch, {valid_ix.size} valid", flush=True)
+    batches, launches_a, _, _ = run_cube("cube fixture", fitter, seed,
+                                         counters)
+    check_fixture("cube fixture", fitter, batches, stack, valid_ix)
+    if keep is not None:
+        keep["fixture"] = (stack, fitter, batches)
 
     # (b) the synthetic NH3 cube of phase ladder as a DataCube pair
     noise = 0.15
@@ -1332,6 +1388,352 @@ def phase_products(cases, counters):
     return launches
 
 
+def median_gate(label, z, e, z_ref, e_ref, k=2.0):
+    """Fail unless the median lnZ difference to the reference run lies
+    within ``k`` median combined errors; prints both."""
+    d = z - z_ref
+    comb = np.sqrt(e ** 2 + e_ref ** 2)
+    print(f"{label}: lnZ - reference median {np.median(d):.3f} (combined "
+          f"error median {np.median(comb):.3f}), beyond 4 combined errors "
+          f"on {int((np.abs(d) > 4 * comb).sum())} of {d.size} pixels",
+          flush=True)
+    if not abs(np.median(d)) <= k * np.median(comb):
+        fail(f"{label}: lnZ off the reference run's")
+
+
+def mesh_dp(seed, counters, traced):
+    """Phase *mesh* (a): the NH3 ladder on a dp = 2 mesh of the one card
+    (both rows on cuda:0), traced then segmented, against the no-mesh
+    runs, and a (1, 1) mesh bit for bit equal to no mesh."""
+    import torch
+    from nestfit_tpu_torch.parallel import make_mesh
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.sampling import NSConfig, fit_batch, graphs
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    noise, n_pix = 0.15, TRACED_PIXELS
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=n_pix, noise=noise, rng=np.random.default_rng(seed))
+    utrans = get_irdc_priors(device="cuda")
+
+    def nh3(ncomp, rows):
+        return make_runner((xa11, xa22), (d11[:rows], d22[:rows]), noise,
+                           ncomp, utrans)
+
+    def config(ncomp):
+        return NSConfig(**LADDER, flat_dims=tuple(utrans.flat_dims(ncomp)))
+
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"])
+    runs = []
+    for ncomp, mode, segment_iters, ref in (
+            (1, "traced", 0, "traced rung ncomp=1 R=1024"),
+            (2, "traced", 0, "traced rung ncomp=2 R=1024"),
+            (1, "segmented", 250, "ladder rung ncomp=1 R=1024")):
+        label = f"mesh dp=2 {mode} rung ncomp={ncomp} R={n_pix}"
+        fit, launches = run_rung(
+            label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
+            counters, ["hf_chi2_fused", "table_lerp"]
+            + (["tapered_invert"] if ncomp == 2 else []),
+            ["gauss_chi2_fused"], segment_iters=segment_iters, mesh=mesh)
+        runs.append(launches)
+        print(f"{label}: wall {WALLS[label]:.2f} s at dp = 2 against "
+              f"{WALLS.get(ref, float('nan')):.2f} s without a mesh "
+              f"({ref})", flush=True)
+        if mode == "traced" and ncomp in traced:
+            median_gate(label, fit.lnz.cpu().numpy(),
+                        fit.lnz_err.cpu().numpy(), *traced[ncomp])
+    # each dp row keeps both rungs' programs: a second ladder captures no
+    # graph again
+    kept = [sum(key[1] == k for key in graphs._PROGRAMS) for k in (0, 1)]
+    print(f"mesh dp=2: programs kept per dp row {kept}", flush=True)
+    if kept != [2, 2]:
+        fail(f"mesh dp=2: the rows keep {kept} programs, not both rungs'")
+    # a (1, 1) mesh on the card is no mesh, bit for bit
+    one = make_mesh(devices=["cuda:0"])
+    for segment_iters in (250, 0):
+        fits = []
+        for m in (None, one):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(seed + 300)
+            fits.append(fit_batch(gen, nh3(1, GRAPH_PIXELS), GRAPH_PIXELS,
+                                  config(1), segment_iters=segment_iters,
+                                  device="cuda", mesh=m))
+        same = {f: bool(torch.equal(getattr(fits[0].ns, f),
+                                    getattr(fits[1].ns, f)))
+                for f in ("lnz", "n_dead", "ncall", "max_loglike", "dead_u")}
+        same["posteriors"] = bool(torch.equal(fits[0].products.posteriors,
+                                              fits[1].products.posteriors))
+        print(f"mesh (1, 1) segment_iters={segment_iters} rung ncomp=1 "
+              f"R={GRAPH_PIXELS}: "
+              f"bit for bit {json.dumps(same)}", flush=True)
+        if not all(same.values()):
+            fail(f"mesh (1, 1) segment_iters={segment_iters}: not the "
+                 "no-mesh run")
+    return runs
+
+
+def mesh_sp(seed, counters):
+    """Phase *mesh* (b): the likelihood over two channel slices (both on
+    cuda:0) against the whole spectra at 51,200 proposals for NH3, N2H+
+    (K1) and the Gaussian model (K4); then a 64-px NH3 rung 2 on a
+    (dp 1, sp 2) mesh in both modes against the no-mesh run."""
+    import torch
+    from nestfit_tpu_torch.parallel import make_mesh
+    from nestfit_tpu_torch.priors import get_diazenylium_priors, \
+        get_gaussian_priors, get_irdc_priors
+    from nestfit_tpu_torch.sampling import NSConfig
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    R, T = 1024, 50
+    rng = np.random.default_rng(seed + 40)
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=R, noise=0.15, rng=np.random.default_rng(seed))
+    xg, rest, dg, _ = gauss_cube(R, np.random.default_rng(seed + 10))
+    xn, dn = n2hp_cube(R, np.random.default_rng(seed + 20))
+    utrans = get_irdc_priors(device="cuda")
+    runners = {
+        "NH3 (K1)": make_runner((xa11, xa22), (d11, d22), 0.15, 2, utrans),
+        "N2H+ (K1)": make_n2hp_runner(
+            [(1, xn, dn)], 2, get_diazenylium_priors(device="cuda")),
+        "Gaussian (K4)": make_gauss_runner(
+            xg, rest, dg, 2, get_gaussian_priors(device="cuda")),
+    }
+    for label, runner in runners.items():
+        sliced = runner.placed(["cuda:0", "cuda:0"])
+        u = torch.as_tensor(rng.uniform(size=(T, R, runner.ndim)),
+                            dtype=torch.float32, device="cuda")
+        want = runner.loglike_unit(u)
+        got = sliced.loglike_unit(u)
+        torch.cuda.synchronize()
+        rel = ((got - want).abs() / want.abs()).max().item()
+        print(f"mesh sp=2 {label} loglike at {T * R} proposals: max relative "
+              f"difference to sp=1 {rel:.3e} (rtol {SP_RTOL:g})", flush=True)
+        if not rel <= SP_RTOL or not bool(torch.isfinite(got).all()):
+            fail(f"mesh sp=2 {label}: the sliced likelihood is not the "
+                 "whole one")
+    mesh = make_mesh(devices=["cuda:0", "cuda:0"], sp=2)
+    runner = make_runner((xa11, xa22), (d11[:GRAPH_PIXELS],
+                                        d22[:GRAPH_PIXELS]), 0.15, 2, utrans)
+    cfg = NSConfig(**LADDER, flat_dims=tuple(utrans.flat_dims(2)))
+    runs = []
+    for segment_iters in (250, 0):
+        res = {}
+        for m in (None, mesh):
+            label = (f"mesh {'(1, 2)' if m else 'none'} segment_iters="
+                     f"{segment_iters} rung ncomp=2 R={GRAPH_PIXELS}")
+            fit, launches = run_rung(
+                label, seed + 2, runner, GRAPH_PIXELS, cfg, counters,
+                ["hf_chi2_fused", "table_lerp", "tapered_invert"],
+                ["gauss_chi2_fused"], segment_iters=segment_iters, mesh=m)
+            runs.append(launches)
+            res[m is None] = (fit.lnz.cpu().numpy(),
+                              fit.lnz_err.cpu().numpy())
+        median_gate(f"mesh (1, 2) segment_iters={segment_iters}",
+                    *res[False], *res[True])
+    return runs
+
+
+def host_worker(rank, world, address, out, seed):
+    """One process of phase *mesh* (c): join the gloo group, fit this
+    process's stripe of the fixture case on cuda:0 through the
+    store-free batch path, and pickle the records, launches, wall and
+    the root of its seed stream to ``out``."""
+    import pickle
+
+    import torch
+    from nestfit_tpu_torch.cube.fitter import host_share
+    from nestfit_tpu_torch.ops import fused, tables
+    from nestfit_tpu_torch.parallel import initialize_distributed
+
+    counters = {"hf_chi2_fused": fused.hf_chi2_fused,
+                "table_lerp": tables.table_lerp,
+                "tapered_invert": tables.tapered_invert,
+                "gauss_chi2_fused": fused.gauss_chi2_fused}
+    initialize_distributed(address, world, rank)
+    stack, fitter, valid_ix = fixture_case()
+    batches, launches, wall, _ = run_cube(f"host {rank}/{world}", fitter,
+                                          seed, counters, host_shard=True)
+    _, root = host_share(valid_ix, seed, rank, world)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(out, "wb") as f:
+        pickle.dump(dict(batches=batches, launches=launches, wall=wall,
+                         state=root.generate_state(4).tolist()), f)
+
+
+def mesh_hosts(seed):
+    """Phase *mesh* (c): two processes of this script, both on cuda:0,
+    joined through gloo on a localhost TCP store, each fitting its
+    ``host_shard`` stripe of phase *cube*'s fixture case; every valid
+    pixel must have one record across them, their seed streams must
+    differ, and phase *cube*'s gates must hold on the union."""
+    import pickle
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_hosts_"))
+    outs = [tmp / f"host{r}.pkl" for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--host-worker",
+         str(r), "2", f"127.0.0.1:{port}", str(outs[r]), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=HOST_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"mesh hosts: a worker ran past {HOST_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if "wall" in line or "FAIL" in line or "Error" in line:
+                print(f"  [host {r}] {line}", flush=True)
+        if p.returncode != 0:
+            print(log[-3000:], flush=True)
+            fail(f"mesh hosts: worker {r} exited {p.returncode}")
+    res = []
+    for o in outs:
+        with open(o, "rb") as f:
+            res.append(pickle.load(f))
+        o.unlink()
+    tmp.rmdir()
+    stack, fitter, valid_ix = fixture_case()
+    owned = [{int(x) for b in r["batches"] for x in b.pixel_ix}
+             for r in res]
+    print(f"mesh hosts: 2 processes on cuda:0 in {wall:.2f} s (their fits "
+          f"{res[0]['wall']:.2f} s and {res[1]['wall']:.2f} s), "
+          f"{len(owned[0])} + {len(owned[1])} of {valid_ix.size} valid "
+          f"pixels; seed roots {res[0]['state'][:2]} and "
+          f"{res[1]['state'][:2]}", flush=True)
+    if owned[0] & owned[1] or owned[0] | owned[1] != set(valid_ix.tolist()):
+        fail("mesh hosts: the processes' pixels are not a partition of the "
+             "valid pixels")
+    if res[0]["state"] == res[1]["state"]:
+        fail("mesh hosts: both processes drew one seed stream")
+    batches = [b for r in res for b in r["batches"]]
+    check_fixture("mesh hosts", fitter, batches, stack, valid_ix)
+    return [r["launches"] for r in res]
+
+
+def mesh_varnoise(counters):
+    """Phase *mesh* (d): ``run_varnoise_sweep`` at its defaults on the
+    card (7 SNR levels x 16 spectra, nlive 100, traced), then at the
+    settings of the JAX package's slow test with its four assertions."""
+    import torch
+    from nestfit_tpu_torch.experiments import run_varnoise_sweep
+    from nestfit_tpu_torch.priors import get_irdc_priors
+
+    runs = []
+    utrans = get_irdc_priors(vsys=0.0, device="cuda")
+    for label, kw in (("defaults", {}),
+                      ("slow-test settings", dict(
+                          snr_levels=np.array([1.0, 40.0]), n_per_level=8,
+                          ncomp_max=2, nlive=60, tol=1.0, seed=7))):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_varnoise_sweep(utrans, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        runs.append(launches)
+        nbest = out["nbest_lnz"]
+        print(f"mesh varnoise {label}: wall {wall:.2f} s, {nbest.size} "
+              f"spectra at SNR {np.round(out['snr'], 2).tolist()}, nbest_lnz "
+              f"per level {nbest.mean(axis=1).round(3).tolist()}, "
+              f"nbest_bic {out['nbest_bic'].mean(axis=1).round(3).tolist()}, "
+              f"kernels {json.dumps(launches)}", flush=True)
+        if not np.isfinite(out["lnz"]).all() or \
+                any(launches[k] <= 0 for k in ("hf_chi2_fused", "table_lerp",
+                                               "tapered_invert")):
+            fail(f"mesh varnoise {label}: non-finite lnZ or a kernel never "
+                 "launched")
+        if kw:
+            lnz = out["lnz"]
+            ok = (nbest.shape == (2, 8) and nbest[0].mean() < 1.0
+                  and (nbest[1] >= 1).all() and (nbest[1] == 2).mean() >= 0.5
+                  and np.all(lnz[1, :, 2] > lnz[1, :, 0]))
+            if not ok:
+                fail(f"mesh varnoise {label}: the slow test's assertions "
+                     f"fail (nbest {nbest.tolist()})")
+    return runs
+
+
+def mesh_transforms(seed):
+    """Phase *mesh* (e): the IRDC transform through K2/K3 on the card for
+    4,096 unit vectors at ncomp 2, against the native C++ engine's
+    transform (built at first use) and 256 of them against the scalar
+    oracle's placement."""
+    import torch
+    from nestfit_tpu_torch import oracle
+    from nestfit_tpu_torch.native import bindings
+    from nestfit_tpu_torch.priors import get_irdc_priors
+
+    t0 = time.perf_counter()
+    if not bindings.available():
+        fail("mesh transforms: no C++ compiler for the native library")
+    lib = bindings.build()
+    t_build = time.perf_counter() - t0
+    utrans = get_irdc_priors(vsys=0.0, device="cuda")
+    u = np.random.default_rng(seed + 50).uniform(size=(4096, 12))
+    u = u.astype(np.float32)
+    th = utrans.transform(torch.as_tensor(u, device="cuda"), 2)
+    th = th.double().cpu().numpy().reshape(-1, 6, 2)
+    tc = bindings.transform_native(utrans, 2, u.astype(np.float64))
+    tc = tc.reshape(-1, 6, 2)
+    dx = utrans.priors[0].vcen_prior.dist.dx
+    indep = np.abs(th[:, 1:] - tc[:, 1:]).max()
+    cells = np.abs(th[:, 0] - tc[:, 0]) / dx
+    prior = utrans.priors[0]
+    dist = prior.vcen_prior.dist
+    od = oracle.OracleDistribution(dist.xax.double().cpu().numpy(),
+                                   dist.pdf.double().cpu().numpy())
+    o_cells = max(np.abs(th[i, 0] - oracle.resolved_placement_interp(
+        od, u[i].reshape(6, 2)[0].astype(np.float64), th[i, 4],
+        prior.sep_scale)).max() for i in range(256)) / dx
+    print(f"mesh transforms: native library {lib.name} ready in "
+          f"{t_build:.2f} s; K2/K3 transform of 4096 vectors (ncomp 2) "
+          f"against the engine: independent dims max {indep:.3e} (atol "
+          f"{NATIVE_INDEP_ATOL:g}), centroids max {cells.max():.3f} and "
+          f"median {np.median(cells):.2e} grid cells (bars "
+          f"{NATIVE_VOFF_MAX_CELLS:g}, {NATIVE_VOFF_MEDIAN_CELLS:g}); 256 "
+          f"against the scalar oracle: max {o_cells:.3f} cells (bar "
+          f"{ORACLE_VOFF_CELLS:g})", flush=True)
+    if not (indep <= NATIVE_INDEP_ATOL and cells.max() <= NATIVE_VOFF_MAX_CELLS
+            and np.median(cells) <= NATIVE_VOFF_MEDIAN_CELLS
+            and o_cells <= ORACLE_VOFF_CELLS):
+        fail("mesh transforms: the kernels' transform is off the "
+             "independent ones")
+
+
+def phase_mesh(seed, counters, traced):
+    """Multi-device and multi-process fitting, and the independent checks
+    of item 15: (a) dp, (b) sp, (c) hosts, (d) varnoise, (e) the native
+    and oracle transforms.  Returns the launches of the fitting runs."""
+    runs = []
+    for part, fn in (("a dp", lambda: mesh_dp(seed, counters, traced)),
+                     ("b sp", lambda: mesh_sp(seed, counters)),
+                     ("c hosts", lambda: mesh_hosts(seed)),
+                     ("d varnoise", lambda: mesh_varnoise(counters)),
+                     ("e transforms", lambda: mesh_transforms(seed))):
+        t0 = time.perf_counter()
+        runs += fn() or []
+        print(f"phase mesh ({part}): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return runs
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler`` in each sampler mode (its
     ``segment_iters``): device time by kernel and the device's busy
@@ -1385,6 +1787,9 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", type=int, choices=(1, 2),
                     help="also profile the rung of this ncomp")
+    ap.add_argument("--host-worker", nargs=5,
+                    metavar=("RANK", "WORLD", "ADDRESS", "OUT", "SEED"),
+                    help="run one process of phase mesh (c) and exit")
     args = ap.parse_args()
 
     import torch
@@ -1395,6 +1800,10 @@ def main():
         from nestfit_tpu_torch.ops import _build, fused, tables
     except ImportError as exc:
         fail(f"the port is missing: {exc}")
+    if args.host_worker:
+        rank, world, address, out, seed = args.host_worker
+        host_worker(int(rank), int(world), address, out, int(seed))
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -1429,7 +1838,8 @@ def main():
     for phase in (phase_gauss_ladder, phase_n2hp_ladder):
         runs += list(phase(args.seed, args.pixels, counters).values())
     t0 = time.perf_counter()
-    runs += phase_traced(args.seed, counters, ladder)
+    traced = {}
+    runs += phase_traced(args.seed, counters, ladder, traced)
     print(f"phase traced: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     cube_cases = {}
@@ -1439,6 +1849,9 @@ def main():
     runs.append(phase_products(cube_cases, counters))
     del cube_cases
     print(f"phase products: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs += phase_mesh(args.seed, counters, traced)
+    print(f"phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -17,27 +17,31 @@ Randomness: every ``fit_batch`` call gets its own ``torch.Generator`` on
 the fitter's device, seeded from ``np.random.SeedSequence(seed)`` spawned
 per batch, batch attempt, rung, and mode-loss attempt or boundary pass,
 so one seed replays the same run on one device.
+
+Multi-device and multi-process: ``mesh=`` splits every batch over the
+mesh's dp rows (``fit_batch(mesh=)``); ``fit_cube(host_shard=True)``
+gives each process an interleaved stripe of the valid pixels, its own
+seed stream and its own ``chunk_h<process>_<j>.hdf`` files
+(:func:`host_share`, which the store-free ``_fit_batches`` path shares).
 """
 
 import dataclasses
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from nestfit_tpu_torch.cube.records import fit_group_records
 from nestfit_tpu_torch.device import resolve_device
+from nestfit_tpu_torch.parallel import distributed
 from nestfit_tpu_torch.sampling.fit import align_fit_meta, fit_batch, \
     merge_fit_rows
 from nestfit_tpu_torch.sampling.results import resolve_n_post
 from nestfit_tpu_torch.sampling.sampler import NSConfig
 
 log = logging.getLogger("nestfit_tpu_torch.fitter")
-
-_MULTI_DEVICE = ("multi-device fitting (mesh, host_shard, process_id, "
-                 "process_count) is not ported to nestfit_tpu_torch "
-                 "(ROADMAP.md Queue 1 item 13)")
 
 
 def bucket_nlive(nlive_arr, n_buckets=4, quantum=50):
@@ -78,6 +82,33 @@ def _generator(ss, device):
     return gen
 
 
+def host_rank(host_shard=False, process_id=None, process_count=None):
+    """``(process index, process count)`` of a fit: ``(0, 1)`` unless
+    ``host_shard``, then the arguments or the process group's rank and
+    size."""
+    if not host_shard:
+        return 0, 1
+    pi = distributed.rank() if process_id is None else int(process_id)
+    pc = distributed.world_size() if process_count is None \
+        else int(process_count)
+    if not 0 <= pi < pc:
+        raise ValueError(f"process {pi} of {pc}")
+    return pi, pc
+
+
+def host_share(pixel_ix, seed, pi=0, pc=1):
+    """The pixels process ``pi`` of ``pc`` fits and the root of its seed
+    stream: the interleaved stripe of ``pixel_ix`` (spatially clustered
+    signal spreads evenly over processes) and
+    ``np.random.SeedSequence(seed).spawn(pc)[pi]``; a single process
+    fits every pixel from ``SeedSequence(seed)`` itself."""
+    pixel_ix = np.asarray(pixel_ix, dtype=np.int64)
+    if pc == 1:
+        return pixel_ix, np.random.SeedSequence(seed)
+    shard_ix = pixel_ix[distributed.host_pixel_stripe(pixel_ix.size, pi, pc)]
+    return shard_ix, np.random.SeedSequence(seed).spawn(pc)[pi]
+
+
 class CubeFitter:
     """Fit every pixel of a cube stack with the N-component ladder.
 
@@ -89,8 +120,10 @@ class CubeFitter:
     ``utrans`` is the prior transformer; ``device`` (default ``"cuda"``,
     raises without a card) is where every batch runs.  ``max_retries``
     re-runs a failed batch with fresh seeds before leaving its pixels
-    to a later ``fit_cube(..., resume=True)``.  ``mesh`` (multi-device)
-    is not ported.
+    to a later ``fit_cube(..., resume=True)``.  ``mesh``
+    (``parallel.make_mesh``) splits every batch over the mesh's dp rows
+    (and the spectra over its sp devices); the batches are then padded
+    to a multiple of dp, and the results gathered on ``device``.
     """
 
     ns_default_kwargs = {"nlive": 100, "tol": 1.0, "init_factor": 4}
@@ -102,8 +135,6 @@ class CubeFitter:
                  max_retries=1, mode_loss_margin=8.0,
                  mode_loss_retries=2, boundary_band=6.0,
                  boundary_nlive_mult=2, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
         self.device = resolve_device(device)
         self.stack = stack
         self.utrans = utrans
@@ -121,6 +152,7 @@ class CubeFitter:
         self.n_post = resolve_n_post(n_post, self.ns_kwargs["nlive"])
         self.nlive_buckets = nlive_buckets
         self.segment_iters = segment_iters
+        self.mesh = mesh
         self.max_retries = max_retries
         # nested-model evidence floor: lnZ_N >= lnZ_{N-1} - margin holds
         # for the true evidences, so a run below it has lost its mode
@@ -136,6 +168,10 @@ class CubeFitter:
     @property
     def mn_kwargs(self):
         return self.ns_kwargs
+
+    @property
+    def _dp_size(self):
+        return 1 if self.mesh is None else self.mesh.shape.get("dp", 1)
 
     def _make_runner(self, datas, noises, ncomp):
         """Batched runner over per-pixel data tensors."""
@@ -156,11 +192,23 @@ class CubeFitter:
         return self._runner_cache[key]
 
     def _pad_quantum(self, n):
-        """Next power of two (one runner per size class)."""
+        """Next power of two (one runner per size class), rounded up to a
+        multiple of the mesh's dp size (even shares per row)."""
         p = 1
         while p < n:
             p *= 2
-        return p
+        dp = self._dp_size
+        if p % dp:
+            p = int(np.ceil(n / dp)) * dp
+        return max(p, dp)
+
+    def _shard_batch(self, tree):
+        """Place per-pixel tensors on the mesh, rows over ``dp``."""
+        if self.mesh is None:
+            return tree
+        from nestfit_tpu_torch.parallel.mesh import shard_pixel_batch
+
+        return shard_pixel_batch(self.mesh, tree)
 
     def _fit_rows(self, ss, rows_ix, ncomp, cfg, datas, noises):
         """``fit_batch`` of the pixels ``rows_ix``, padded to
@@ -179,8 +227,8 @@ class CubeFitter:
         fit = fit_batch(
             _generator(ss, self.device), template, r_pad, cfg,
             n_post=self.n_post, segment_iters=self.segment_iters,
-            data=tuple(zip(d_b, n_b)), active=np.arange(r_pad) < n,
-            device=self.device,
+            data=self._shard_batch(tuple(zip(d_b, n_b))),
+            active=np.arange(r_pad) < n, device=self.device, mesh=self.mesh,
         )
         return fit, r_pad
 
@@ -360,15 +408,21 @@ class CubeFitter:
                     return None
                 log.exception("batch failed; retrying with fresh seeds")
 
-    def _fit_batches(self, seed=0, pixel_ix=None):
+    def _fit_batches(self, seed=0, pixel_ix=None, host_shard=False,
+                     process_id=None, process_count=None):
         """Fit the pixels ``pixel_ix`` (flat ids; default every valid
         pixel) in SNR buckets and batches of ``batch_size``, yielding one
         ``BatchRecords`` per batch that succeeded.  Everything yielded is
-        on the host."""
+        on the host.  With ``host_shard`` this process fits only its
+        :func:`host_share` of them (``host_rank`` of the arguments)."""
         datas, noises, nan_mask, max_snr = self.stack.get_flat_batch()
         if pixel_ix is None:
             pixel_ix = np.nonzero(~nan_mask)[0]
-        pixel_ix = np.asarray(pixel_ix, dtype=np.int64)
+        pi, pc = host_rank(host_shard, process_id, process_count)
+        pixel_ix, root = host_share(pixel_ix, seed, pi, pc)
+        if pc > 1:
+            log.info("fit_cube: host %d/%d owns %d pixels", pi, pc,
+                     pixel_ix.size)
         if pixel_ix.size == 0:
             return
         # SNR-scaled live points, bucketed into a few levels
@@ -378,7 +432,6 @@ class CubeFitter:
         ).astype(int)
         nlive_assign, _ = bucket_nlive(nlive_pix,
                                        n_buckets=self.nlive_buckets)
-        root = np.random.SeedSequence(seed)
         chunk = 0
         t_start = time.perf_counter()
         for level in np.unique(nlive_assign):
@@ -406,33 +459,56 @@ class CubeFitter:
 
         ``nproc`` and ``timeout`` are accepted for API parity and
         unused.  With ``resume=True`` pixels already in the store's
-        completion manifest are skipped.  The multi-host arguments
-        (``host_shard``, ``process_id``, ``process_count``) are not
-        ported.  Returns the closed ``HdfStore``.
+        completion manifest are skipped.  Returns the closed ``HdfStore``
+        (None on a process other than 0).
+
+        Multi-process: with ``host_shard=True`` each process fits its
+        interleaved stripe of the valid pixels left after resume, from a
+        seed stream of its own (:func:`host_share`), and writes its own
+        ``chunk_h<process>_<j>.hdf`` files.  The process index and count
+        are ``process_id``/``process_count`` or the ``torch.distributed``
+        group's (``parallel.initialize_distributed``).  Only process 0
+        opens ``table.hdf``: it writes the header, and after a barrier of
+        the process group links every shard; without a group there is no
+        barrier, and linking is left to the caller (``link`` is then
+        False, with a warning).
         """
-        if host_shard or process_id is not None or process_count is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
-        from nestfit_tpu_torch.cube.store import HdfStore, completed_pixels, \
-            write_chunk
+        from nestfit_tpu_torch.cube.store import HdfStore, check_ext, \
+            completed_pixels, write_chunk
 
         n_lat = self.stack.spatial_shape[1]
         _, _, nan_mask, _ = self.stack.get_flat_batch()
         valid_ix = np.nonzero(~nan_mask)[0]
+        pi, pc = host_rank(host_shard, process_id, process_count)
         nchunks = max(1, int(np.ceil(valid_ix.size / self.batch_size)))
-        store = HdfStore(store_name, nchunks=nchunks)
+        if pi == 0:
+            store = HdfStore(store_name, nchunks=nchunks)
+            store_dir = store.store_dir
+        else:
+            store = None
+            store_dir = Path(check_ext(str(store_name), ext="store"))
+            store_dir.mkdir(parents=True, exist_ok=True)
         if resume:
-            done = completed_pixels(store.store_dir)
+            done = completed_pixels(store_dir)
             valid_ix = np.setdiff1d(valid_ix, done)
             log.info("fit_cube: resume skips %d completed pixels", done.size)
         log.info("fit_cube: %d/%d valid pixels", valid_ix.size,
                  nan_mask.size)
-        store.insert_header(self.stack)
-        store.insert_fitter_pars(self)
-        store.insert_model_metadata(self.runner_cls.model)
-        for batch in self._fit_batches(seed, valid_ix):
-            write_chunk(store.chunk_paths[batch.chunk % store.nchunks],
-                        batch, n_lat)
-        if link:
-            store.link_files()
-        store.close()
+        if store is not None:
+            store.insert_header(self.stack)
+            store.insert_fitter_pars(self)
+            store.insert_model_metadata(self.runner_cls.model)
+        for batch in self._fit_batches(seed, valid_ix, host_shard, pi, pc):
+            path = store_dir / f"chunk_h{pi}_{batch.chunk}.hdf" \
+                if host_shard else \
+                store.chunk_paths[batch.chunk % store.nchunks]
+            write_chunk(path, batch, n_lat)
+        if host_shard and pc > 1 and not distributed.barrier():
+            log.warning("no process group to wait on; link the chunk "
+                        "shards once every process is done")
+            link = False
+        if store is not None:
+            if link:
+                store.link_files()
+            store.close()
         return store

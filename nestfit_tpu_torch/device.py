@@ -18,3 +18,16 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device (a bare ``"cuda"`` is the
+    current card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or (a.index is None and b.index is None):
+        return a.index == b.index
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)

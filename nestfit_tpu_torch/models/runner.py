@@ -11,17 +11,27 @@ K1 for NH3 and N2H+, K4 for the Gaussian mixture), on the CPU it is the
 model's plain ``model_predict`` path.
 ``plain=True`` takes the plain path on any device; it is the reference
 the kernels are held against.
+
+The likelihood runs over channel slices: one per spectrum, or, on a
+runner placed on a mesh row (:meth:`Runner.placed`) with several
+devices, one contiguous slice per device.  The same kernel (or plain
+path) runs on every slice for the same proposals and the partial
+chi-square is summed on the row's first device, where the whole spectra
+stay for ``null_lnZ``, ``n_chan_tot`` and the information criteria.
 """
 
+import copy
 import dataclasses
 
+import numpy as np
 import torch
 
-from nestfit_tpu_torch.device import resolve_device
+from nestfit_tpu_torch.device import resolve_device, same_device
 from nestfit_tpu_torch.models import ammonia as _ammonia
 from nestfit_tpu_torch.models import diazenylium as _diazenylium
 from nestfit_tpu_torch.models import gaussian as _gaussian
 from nestfit_tpu_torch.models.spectrum import Spectrum
+from nestfit_tpu_torch.parallel.mesh import shard_bounds
 
 
 class Runner:
@@ -51,9 +61,38 @@ class Runner:
         self.ndim = self.n_params
         self.n_spec = len(self.spectra)
         self.n_chan_tot = sum(s.size for s in self.spectra)
+        # per spectrum, ((lo, hi, channel terms of the slice), ...): one
+        # slice here, one per device of a mesh row after ``placed``
+        self.channel_slices = _channel_slices(self.spectra, (self.device,))
+        # the prior transformer moved to other devices (``transform``)
+        self._utrans_on = {}
         if utrans is not None and utrans.n_param != self.n_model:
             raise ValueError(f"prior transformer covers {utrans.n_param} "
                              f"parameters, model has {self.n_model}")
+
+    def placed(self, devices) -> "Runner":
+        """A copy of this runner on a mesh row: spectra and prior tables on
+        ``devices[0]``, and each spectrum's channel terms split into
+        ``len(devices)`` contiguous slices, slice ``j`` on ``devices[j]``
+        (the likelihood then sums their partial chi-square)."""
+        devices = tuple(torch.device(d) for d in devices)
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        new.device = devices[0]
+        new.spectra = tuple(s.to(devices[0]) for s in self.spectra)
+        if self.utrans is not None and not same_device(devices[0],
+                                                       self.device):
+            new.utrans = copy.deepcopy(self.utrans).to(devices[0])
+        new._utrans_on = {}
+        new.channel_slices = _channel_slices(new.spectra, devices)
+        return new
+
+    @property
+    def spans_devices(self) -> bool:
+        """Whether the likelihood runs on more than one device."""
+        return any(not same_device(terms.dnu.device, self.device)
+                   for slices in self.channel_slices
+                   for _, _, terms in slices)
 
     @property
     def null_lnZ(self):
@@ -84,40 +123,86 @@ class Runner:
 
     def log_likelihood(self, theta, plain: bool = False):
         """Summed chi-square ln-likelihood over all spectra."""
-        if theta.is_cuda and not plain:
-            return self._log_likelihood_fused(theta)
-        preds = self.predict(theta)
-        return sum(
-            spec.loglikelihood(pred) for spec, pred in zip(self.spectra, preds)
-        )
+        return self._log_likelihood(theta, fused=theta.is_cuda and not plain)
 
-    def _log_likelihood_fused(self, theta):
-        """Kernel path: one fused launch per transition.
+    def _log_likelihood(self, theta, fused: bool):
+        """Per spectrum, the chi-square of every channel slice on the
+        slice's device, summed on the runner's device, then scaled by
+        ``1 / (2 sigma^2)``.
 
-        ``theta[..., R, ndim]`` is flattened to ``B = T * R`` rows; row
-        ``b`` reads data row ``b % R``, so the per-pixel ``1/(2 sigma^2)``
-        is tiled ``B // R`` times.
+        ``fused``: the model's ``fused_chi2`` (its kernel on CUDA tensors,
+        the kernel's plain version on CPU tensors).  ``theta[..., R,
+        ndim]`` is flattened to ``B = T * R`` rows; row ``b`` reads data
+        row ``b % R``, so the per-pixel ``1/(2 sigma^2)`` is tiled
+        ``B // R`` times.  Otherwise the model's plain ``model_predict``
+        path, broadcast over ``theta``'s leading dims.
         """
         lead = theta.shape[:-1]
-        flat = theta.reshape(-1, theta.shape[-1])
-        B = flat.shape[0]
+        if fused:
+            theta = theta.reshape(-1, theta.shape[-1])
         total = 0.0
-        for spec in self.spectra:
-            chi2 = self.model.fused_chi2(spec, flat, **self.predict_kwargs)
-            inv2v = 1.0 / (2.0 * spec.noise * spec.noise)
-            if spec.noise.ndim:
-                inv2v = inv2v.repeat(B // spec.noise.shape[0])
-            total = total - chi2 * inv2v
-        return total.reshape(lead)
+        for spec, slices in zip(self.spectra, self.channel_slices):
+            chi2 = 0.0
+            for lo, hi, terms in slices:
+                dev = terms.dnu.device
+                part = dataclasses.replace(
+                    terms, data=spec.data[..., lo:hi].to(dev).contiguous())
+                th = theta.to(dev)
+                if fused:
+                    c = self.model.fused_chi2(part, th, **self.predict_kwargs)
+                else:
+                    resid = part.data - self.model.model_predict(
+                        part, th, **self.predict_kwargs)
+                    c = torch.sum(resid * resid, dim=-1)
+                chi2 = chi2 + c.to(self.device)
+            if fused:
+                inv2v = 1.0 / (2.0 * spec.noise * spec.noise)
+                if spec.noise.ndim:
+                    inv2v = inv2v.repeat(theta.shape[0]
+                                         // spec.noise.shape[0])
+                total = total - chi2 * inv2v
+            else:
+                total = total - chi2 / (2.0 * spec.noise ** 2)
+        return total.reshape(lead) if fused else total
 
     def transform(self, u, plain: bool = False):
-        """Unit cube -> physical parameters via the prior transformer."""
-        return self.utrans.transform(u, self.ncomp, plain)
+        """Unit cube -> physical parameters via the prior transformer
+        (points on another device than the runner's go through a copy of
+        the tables there)."""
+        if self.utrans is None or same_device(u.device, self.device):
+            return self.utrans.transform(u, self.ncomp, plain)
+        ut = self._utrans_on.get(u.device)
+        if ut is None:
+            ut = self._utrans_on[u.device] = copy.deepcopy(
+                self.utrans).to(u.device)
+        return ut.transform(u, self.ncomp, plain)
 
     def loglike_unit(self, u, plain: bool = False):
         """Ln-likelihood straight from unit-cube coordinates (the
         function the sampler calls)."""
         return self.log_likelihood(self.transform(u, plain), plain)
+
+
+def _channel_slices(spectra, devices):
+    """Per spectrum, ``((lo, hi, terms), ...)``: its channels split into
+    ``len(devices)`` contiguous slices by ``parallel.mesh.shard_bounds``,
+    ``terms`` the slice's channel terms on its device (no data: the
+    likelihood slices the runner's current data).  On one device the
+    terms are views of the spectrum's own tensors."""
+    out = []
+    for spec in spectra:
+        bounds = shard_bounds(spec.size, len(devices))
+        if (np.diff(bounds) == 0).any():
+            raise ValueError(f"{spec.size} channels cannot fill "
+                             f"{len(devices)} sp slices")
+        out.append(tuple(
+            (int(lo), int(hi), dataclasses.replace(
+                spec, dnu=spec.dnu[lo:hi].to(dev).contiguous(),
+                t0=spec.t0[lo:hi].to(dev).contiguous(),
+                tbg=spec.tbg[lo:hi].to(dev).contiguous(),
+                data=None, noise=None, size=int(hi - lo)))
+            for lo, hi, dev in zip(bounds[:-1], bounds[1:], devices)))
+    return tuple(out)
 
 
 class AmmoniaRunner(Runner):

@@ -10,11 +10,13 @@ is built at import: the first launch of a kernel builds every kernel,
 and a failed build raises.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +32,8 @@ NVCC_FLAGS = (
 
 _LIBS = {}
 _FUNCS = {}
+_COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
 def _nvcc() -> str:
@@ -116,3 +120,35 @@ def check(rc: int, name: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, under a lock (the dp rows of a
+    mesh launch from threads of their own).  While this thread captures a
+    CUDA graph (:func:`recording`), the launch is recorded for the graph
+    instead: it happens at each replay."""
+    counts = getattr(_RECORDING, "counts", None)
+    if counts is not None:
+        counts[wrapper] = counts.get(wrapper, 0) + 1
+        return
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def add_launches(counts) -> None:
+    """Add ``{wrapper: n}`` to the wrappers' counters (a graph replay)."""
+    with _COUNT_LOCK:
+        for wrapper, n in counts.items():
+            wrapper.launches += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's launches in a ``{wrapper: n}`` dict instead
+    of the counters, for the length of a graph capture."""
+    counts = {}
+    _RECORDING.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDING.counts = None

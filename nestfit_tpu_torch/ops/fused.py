@@ -114,7 +114,7 @@ def hf_chi2_fused(trans: Transition, dnu, t0, tbg, data, voff, tex,
             B, C, R, S, trans.nhf, dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "hf_chi2_fused")
-    hf_chi2_fused.launches += 1
+    _build.count_launch(hf_chi2_fused)
     return out
 
 
@@ -168,7 +168,7 @@ def gauss_chi2_fused(rest_freq_over_c, dnu, data, voff, sigm, peak):
             float(np.float32(rest_freq_over_c)), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "gauss_chi2_fused")
-    gauss_chi2_fused.launches += 1
+    _build.count_launch(gauss_chi2_fused)
     return out
 
 

@@ -62,7 +62,7 @@ def table_lerp(table, scaled):
             out.data_ptr(), scaled.numel(), dev.index,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "table_lerp")
-    table_lerp.launches += 1
+    _build.count_launch(table_lerp)
     return out
 
 
@@ -157,7 +157,7 @@ def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
             u.numel(), dist.size, s, dist.xmin, dist.dx, dist.center,
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "tapered_invert")
-    tapered_invert.launches += 1
+    _build.count_launch(tapered_invert)
     return out
 
 

@@ -2,6 +2,11 @@
 models (the physics part of ``nestfit_tpu/oracle.py``, copied): absolute
 frequencies, scalar loops, no relative-axis trick.  The synthetic cube
 generator and ``chip_smoke.py`` use it to make truth spectra.
+
+``OracleDistribution`` and ``resolved_placement_interp`` (copied as
+well) are not independent of the priors: they are a scalar float64
+transliteration of the reference's prior interpolation and placement,
+a line-level mirror to hold the vectorized transforms against.
 """
 
 import numpy as np
@@ -125,3 +130,118 @@ def gauss_predict(xarr, params, rest_freq):
         d = xarr - nu_cen
         pred += peak * np.exp(-0.5 * d * d / (nu_width * nu_width))
     return pred
+
+
+# ---------------------------------------------------------------------------
+# Prior-transform oracle: scalar float64 implementation of the reference
+# Distribution/prior algorithms (reference core/core.pyx:23-161, 369-434)
+# used to cross-check the vectorized JAX implementation.
+# ---------------------------------------------------------------------------
+
+class OracleDistribution:
+    """Scalar mirror of the reference ``Distribution`` extension type,
+    including the in-place ``cdf_over_interval`` mutation semantics."""
+
+    def __init__(self, xax, pdf):
+        from scipy import integrate, interpolate
+        xax = np.asarray(xax, dtype=np.float64)
+        pdf = np.asarray(pdf, dtype=np.float64)
+        self.dx = xax[1] - xax[0]
+        self.xax = xax
+        self.pdf = pdf
+        self.size = xax.shape[0]
+        self.xmin = xax.min()
+        self.xmax = xax.max()
+        cdf = integrate.cumulative_trapezoid(pdf, xax, initial=0)
+        cdf = cdf / cdf.max()
+        self.cdf = cdf.copy()
+        eps_cdf = cdf + np.arange(self.size) * 1e-16
+        eps_cdf /= eps_cdf.max()
+        inv_cdf = interpolate.UnivariateSpline(eps_cdf, xax, k=3, s=0)
+        u = np.linspace(0, 1, self.size)
+        self.du = u[1] - u[0]
+        self.ppf = inv_cdf(u)
+
+    def ppf_interp(self, u):
+        i_lo = int((self.size - 1) * u)
+        i_hi = i_lo + 1
+        x_lo = i_lo * self.du
+        y_lo = self.ppf[i_lo]
+        y_hi = self.ppf[i_hi]
+        slope = (y_hi - y_lo) / self.du
+        return slope * (u - x_lo) + y_lo
+
+    def cdf_interp(self, u):
+        if u <= self.cdf[0]:
+            u = 1e-64
+        i_lo, i_hi = 0, self.size
+        i = i_hi // 2
+        while i != i_lo:
+            if u > self.cdf[i]:
+                i_lo = i
+            else:
+                i_hi = i
+            i = (i_hi + i_lo) // 2
+        i_lo = i if i < self.size else self.size - 1
+        i_hi = i_lo + 1
+        x_lo = self.xax[i_lo]
+        y_lo = self.cdf[i_lo]
+        y_hi = self.cdf[i_hi]
+        slope = (y_hi - y_lo) / self.dx
+        return 1 / slope * (u - y_lo) + x_lo
+
+    def cdf_over_interval(self, x_lo, x_hi, sfact):
+        if x_lo > x_hi:
+            x_lo, x_hi = x_hi, x_lo
+        i_lo = int((x_lo - self.xmin) / self.dx)
+        i_lo = min(max(i_lo, 0), self.size - 1)
+        i_hi = int((x_hi - self.xmin) / self.dx)
+        if i_hi == i_lo:
+            i_hi = i_lo + 1
+        i_hi = min(max(i_hi, 1), self.size)
+        csum = 0.0
+        self.cdf[:i_lo] = 0.0
+        self.cdf[i_hi:] = 1.0
+        if i_hi - i_lo == 1:
+            self.cdf[i_lo] = 1.0
+        else:
+            self.cdf[i_lo] = 0.0
+            inv_delta_i = 1.0 / (i_hi - i_lo)
+            for i in range(i_lo + 1, i_hi):
+                scale = (1.0 - (i - i_lo) * inv_delta_i) ** sfact
+                csum += 0.5 * (self.pdf[i] + self.pdf[i - 1]) * scale
+                self.cdf[i] = csum
+            self.cdf[i_lo:i_hi] /= csum
+
+
+def resolved_placement_interp(vcen_dist, utheta_v, sigm, sep_scale):
+    """Scalar mirror of ``ResolvedPlacementPrior.interp``
+    (reference core.pyx:392-434) for pre-transformed sigma values.
+
+    Returns the placed centroid values for one draw.
+    """
+    n = len(utheta_v)
+    if n == 1:
+        return np.array([vcen_dist.ppf_interp(utheta_v[0])])
+    v_lo = vcen_dist.xmin
+    v_hi = vcen_dist.xmax
+    min_seps = np.zeros(n)
+    sep_tot = 0.0
+    for i in range(1, n):
+        sep = sep_scale * np.sqrt(sigm[i] * sigm[i - 1])
+        sep_tot += sep
+        min_seps[i] = sep
+    if sep_tot > v_hi - v_lo:
+        overf = (v_hi - v_lo) / sep_tot
+        min_seps *= overf
+        sep_tot = min_seps.sum()
+    v_hi -= sep_tot
+    out = np.zeros(n)
+    for i in range(n):
+        sep = min_seps[i]
+        v_lo += sep
+        v_hi += sep
+        vcen_dist.cdf_over_interval(v_lo, v_hi, float(n - 1 - i))
+        v_lo = vcen_dist.cdf_interp(utheta_v[i])
+        out[i] = v_lo
+    return out

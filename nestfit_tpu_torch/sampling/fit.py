@@ -3,11 +3,12 @@
 ``merge_fit_rows`` and ``fit_single`` of ``nestfit_tpu/sampling/fit.py``)."""
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
-from nestfit_tpu_torch.device import resolve_device
+from nestfit_tpu_torch.device import resolve_device, same_device
 from nestfit_tpu_torch.models.runner import Runner
 from nestfit_tpu_torch.sampling.results import (
     PosteriorProducts,
@@ -19,7 +20,8 @@ from nestfit_tpu_torch.sampling.sampler import (
     NSConfig,
     NSResult,
     _memo,
-    run_nested,
+    _run_nested,
+    _shard_data,
 )
 
 
@@ -56,6 +58,26 @@ def _loglike2_for(runner: Runner, dtype):
     return _memo(("runner", id(runner), dtype), make)
 
 
+#: runners placed on a mesh row's devices, per (runner, devices): the
+#: traced mode's graphs then serve every call on the same runner
+_PLACED = {}
+_PLACED_CAP = 16
+_PLACED_LOCK = threading.Lock()
+
+
+def _placed(runner: Runner, devices) -> Runner:
+    """``runner`` on a mesh row: itself when the row is its own device."""
+    if len(devices) == 1 and same_device(devices[0], runner.device):
+        return runner
+    key = (id(runner), tuple(devices))
+    with _PLACED_LOCK:
+        if key not in _PLACED:
+            while len(_PLACED) >= _PLACED_CAP:
+                _PLACED.pop(next(iter(_PLACED)))
+            _PLACED[key] = (runner.placed(devices), runner)
+        return _PLACED[key][0]
+
+
 def fit_batch(
     gen: torch.Generator,
     runner: Runner,
@@ -67,6 +89,7 @@ def fit_batch(
     data=None,
     active=None,
     device="cuda",
+    mesh=None,
 ) -> FitResult:
     """Fit a batch of ``n_runs`` pixels with nested sampling.
 
@@ -79,6 +102,15 @@ def fit_batch(
     graphs on the card) on the runner's own spectra: ``data`` must then
     be None.  The default stays the segmented sampler, where the JAX
     package defaults to the traced one.
+
+    ``mesh`` (``parallel.make_mesh``) splits the batch over its dp rows:
+    each row fits its contiguous share of the pixels (sampler, posterior
+    products, information criteria) on its first device, in a thread of
+    its own, with the runner placed there (its spectra split over the
+    row's sp devices when ``sp > 1``) and a generator seeded from one
+    draw of ``gen`` per row; a ``(1, 1)`` mesh on ``device`` is no mesh.
+    ``data`` may be a ``parallel.ShardedBatch`` over the same mesh.  The
+    result is joined in pixel order on ``device``.
     """
     dev = resolve_device(device)
     if runner.device != dev or gen.device != dev:
@@ -94,9 +126,33 @@ def fit_batch(
                          "traced mode fits the runner's own spectra")
     if data is None:
         data = runner.data_tree()
-    ns = run_nested(gen, _loglike2_for(runner, dtype), runner.ndim, n_runs,
-                    config, dtype=dtype, data=data,
-                    segment_iters=segment_iters, active=active)
+    if mesh is None:
+        return _fit_rows(gen, runner, n_runs, config, n_post, dtype,
+                         segment_iters, data, active)
+    from nestfit_tpu_torch.parallel import mesh as _mesh
+    from nestfit_tpu_torch.sampling import graphs
+
+    def row(k, rows, devices, gen_k):
+        r_k = _placed(runner, devices)
+        d_k = _shard_data(data, k, rows, n_runs, devices[0])
+        a_k = None if active is None else np.asarray(active)[rows]
+        fit = _fit_rows(gen_k, r_k, rows.stop - rows.start, config, n_post,
+                        dtype, segment_iters, d_k, a_k, shard=k)
+        return fit, graphs.thread_stats()
+
+    parts = _mesh.run_shards(mesh, gen, n_runs, row)
+    if traced:
+        graphs.last_stats = sum((p[1] for p in parts), graphs.TracedStats())
+    return _mesh.gather_rows([p[0] for p in parts], dev)
+
+
+def _fit_rows(gen, runner, n_runs, config, n_post, dtype, segment_iters,
+              data, active, shard=0) -> FitResult:
+    """:func:`fit_batch` of ``n_runs`` pixels on the runner's device."""
+    dev = runner.device
+    ns = _run_nested(gen, _loglike2_for(runner, dtype), runner.ndim, n_runs,
+                     config, dtype, data, segment_iters, True, active,
+                     shard=shard, capture=not runner.spans_devices)
     r2 = runner.with_data(data)
     products = posterior_products(ns, r2.transform, gen, n_post=n_post)
     null_lnz = torch.broadcast_to(

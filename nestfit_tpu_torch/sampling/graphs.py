@@ -19,23 +19,35 @@ eagerly, and graph and eager runs agree bit for bit.  A failed capture
 raises: there is no eager fallback on the card.  The large dead-point
 buffers are updated in place by the replay.  The program is kept for the
 next call with the same likelihood, batch, config and data shapes (the
-last ``_PROGRAMS_CAP`` of them; their static tensors, the dead-point
-buffers included, stay allocated until :func:`clear` drops them): that
-call copies its initial state and data into the static tensors and
-replays the graphs already captured.
+last ``_PROGRAMS_CAP`` of them for each dp row; their static tensors,
+the dead-point buffers included, stay allocated until :func:`clear`
+drops them): that call copies its initial state and data into the
+static tensors and replays the graphs already captured.
 
 On the CPU the same static-state loop runs without capture.
 
 The kernel wrappers count their launches on the host, which a replay
 does not reach: capturing a block records how many launches it holds,
 and every replay adds them to the counters.
+
+The dp rows of a mesh run this loop in threads of their own, one program
+per row (the row is part of the program's key).  Captures take a lock and
+run in ``"thread_local"`` error mode, so another row's launches and host
+reads during a capture neither break it nor land in it.  A program whose
+likelihood spans several devices (a row split over ``sp`` devices) is not
+captured: its blocks run eagerly, with a warning.
 """
 
 import dataclasses
+import logging
+import threading
 
 import torch
 
+from nestfit_tpu_torch.ops import _build
 from nestfit_tpu_torch.sampling import sampler as _s
+
+log = logging.getLogger("nestfit_tpu_torch.graphs")
 
 
 @dataclasses.dataclass
@@ -47,25 +59,33 @@ class TracedStats:
     captures: int = 0          # graphs captured
     done_reads: int = 0        # host reads of the [R] done mask
     straggler_blocks: int = 0  # blocks run with < 10% of the rows active
+    eager_blocks: int = 0      # blocks run eagerly on the card (no capture)
+
+    def __add__(self, other: "TracedStats") -> "TracedStats":
+        return TracedStats(*(getattr(self, f.name) + getattr(other, f.name)
+                             for f in dataclasses.fields(self)))
 
 
-#: the stats of the last :func:`run_traced` call
+#: the stats of the last :func:`run_traced` call (of a mesh run, the sum
+#: over its dp rows: ``sampler.run_nested`` sets it)
 last_stats = TracedStats()
+_THREAD = threading.local()
 
 _PROGRAMS = {}
 _PROGRAMS_CAP = 2
+_LOCK = threading.Lock()           # _PROGRAMS
+_CAPTURE_LOCK = threading.Lock()   # one capture at a time
 
 
 def clear():
     """Drop the kept programs (their graphs and static tensors)."""
-    _PROGRAMS.clear()
+    with _LOCK:
+        _PROGRAMS.clear()
 
 
-def _counted_wrappers():
-    from nestfit_tpu_torch.ops import fused, tables
-
-    return (fused.hf_chi2_fused, fused.gauss_chi2_fused, tables.table_lerp,
-            tables.tapered_invert)
+def thread_stats() -> TracedStats:
+    """The stats of this thread's last :func:`run_traced` call."""
+    return getattr(_THREAD, "stats", TracedStats())
 
 
 def _leaves(tree):
@@ -101,8 +121,10 @@ def _copy(dst, src):
 class _Program:
     """The traced block on one static state."""
 
-    def __init__(self, state: _s._State, loglike2, data, cfg):
+    def __init__(self, state: _s._State, loglike2, data, cfg,
+                 capture=True):
         self.on_card = state.u.is_cuda
+        self.capture = capture
         if self.on_card:
             # the graphs draw from the program's generator; each call
             # lends it its caller's state
@@ -130,22 +152,20 @@ class _Program:
         _copy(_tensors(self.state), _tensors(out))
 
     def _capture(self, i0: int, n_iters: int):
-        counted = _counted_wrappers()
-        before = [fn.launches for fn in counted]
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.gen)
+        # a capture launches nothing: the launches it records are added
+        # on each replay
         try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            with _CAPTURE_LOCK, _build.recording() as per_replay, \
+                    torch.cuda.graph(graph, pool=self.pool,
+                                     stream=self.stream,
+                                     capture_error_mode="thread_local"):
                 self._eager(i0, n_iters)
         except RuntimeError as exc:
             raise RuntimeError(
                 f"capturing the traced block ({n_iters} iterations from "
                 f"i = {i0}) as a CUDA graph failed: {exc}") from exc
-        # a capture launches nothing: the launches it recorded are added
-        # on each replay
-        per_replay = [fn.launches - b for fn, b in zip(counted, before)]
-        for fn, b in zip(counted, before):
-            fn.launches = b
         if self.pool is None:
             self.pool = graph.pool()
         return graph, per_replay
@@ -154,6 +174,10 @@ class _Program:
         stats.blocks += 1
         if not self.on_card:
             self._eager(i0, n_iters)
+            return
+        if not self.capture:
+            self._eager(i0, n_iters)
+            stats.eager_blocks += 1
             return
         if not self.warm:
             # the warm-up block: a real block of the run, run eagerly on
@@ -171,43 +195,52 @@ class _Program:
         graph, per_replay = self.graphs[key]
         graph.replay()
         stats.replays += 1
-        for fn, k in zip(_counted_wrappers(), per_replay):
-            fn.launches += k
+        _build.add_launches(per_replay)
 
 
-def _program(state: _s._State, loglike2, data, cfg) -> _Program:
+def _program(state: _s._State, loglike2, data, cfg, shard: int,
+             capture: bool) -> _Program:
     """The kept program for this call, loaded with ``state`` and
     ``data``, or a new one."""
-    key = (id(loglike2), cfg, tuple(state.u.shape), state.u.dtype,
-           state.u.device, len(state.bounds),
+    key = (id(loglike2), shard, capture, cfg, tuple(state.u.shape),
+           state.u.dtype, state.u.device, len(state.bounds),
            tuple((tuple(x.shape), x.dtype, x.device)
                  for x in _leaves(data)))
-    prog = _PROGRAMS.get(key)
-    if prog is not None:
-        prog.load(state, data)
-        return prog
-    while len(_PROGRAMS) >= _PROGRAMS_CAP:
-        _PROGRAMS.pop(next(iter(_PROGRAMS)))
-    # the program owns its data and the likelihood (whose id is in the
-    # key): a later call copies its own data in
-    prog = _Program(state, loglike2, _clone_tree(data), cfg)
-    _PROGRAMS[key] = prog
+    with _LOCK:
+        prog = _PROGRAMS.get(key)
+        if prog is None:
+            # each dp row keeps its own last _PROGRAMS_CAP programs
+            mine = [k for k in _PROGRAMS if k[1] == shard]
+            while len(mine) >= _PROGRAMS_CAP:
+                _PROGRAMS.pop(mine.pop(0))
+            # the program owns its data and the likelihood (whose id is
+            # in the key): a later call copies its own data in
+            _PROGRAMS[key] = _Program(state, loglike2, _clone_tree(data),
+                                      cfg, capture)
+            return _PROGRAMS[key]
+    prog.load(state, data)
     return prog
 
 
-def run_traced(state: _s._State, loglike2, data, cfg) -> _s._State:
+def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,
+               capture: bool = True) -> _s._State:
     """Run traced blocks from ``state`` until every run is done or ``i``
     reaches ``max_iter``: the blocks of ``sampler.ns_traced``, on a
-    static state, captured and replayed on a CUDA device.  Returns the
-    final state (the caller's generator advanced); ``last_stats`` holds
-    what the call did."""
+    static state, captured and replayed on a CUDA device.  ``shard`` is
+    the dp row of a mesh run (its program is its own); ``capture=False``
+    runs the blocks eagerly on the card (a likelihood that spans several
+    devices).  Returns the final state (the caller's generator
+    advanced); ``last_stats`` holds what the call did."""
     global last_stats
     R, _, D = state.u.shape
     cfg = cfg.resolved(D)
     block = max(1, cfg.block_iters)
     caller_gen = state.gen
     if state.u.is_cuda:
-        prog = _program(state, loglike2, data, cfg)
+        if not capture:
+            log.warning("the likelihood spans several devices: the traced "
+                        "blocks run eagerly, without CUDA graphs")
+        prog = _program(state, loglike2, data, cfg, shard, capture)
         prog.state.gen.set_state(caller_gen.get_state())
     else:
         prog = _Program(state, loglike2, data, cfg)
@@ -224,7 +257,7 @@ def run_traced(state: _s._State, loglike2, data, cfg) -> _s._State:
         n = min(block, cfg.max_iter - i)
         prog.run_block(i, n, stats)
         i += n
-    last_stats = stats
+    last_stats = _THREAD.stats = stats
     out = dataclasses.replace(prog.state, i=i, bounds=(), gen=caller_gen)
     if prog.on_card:
         caller_gen.set_state(prog.state.gen.get_state())

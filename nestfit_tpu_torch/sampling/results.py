@@ -289,13 +289,28 @@ def _row_step(result: NSResult) -> int:
 
 def posterior_modes(result: NSResult, transform, max_modes: int = 6,
                     n_iter: int = 12, merge_fact: float = 2.0,
-                    ztol: float = None) -> ModeProducts:
+                    ztol: float = None, mesh=None) -> ModeProducts:
     """Decompose each run's posterior into isolated modes and report
     per-mode local evidences and statistics (see the JAX package).
     ``ztol`` maps MultiNest's ``Ztol``: mode slots whose local evidence
     falls below it are masked from the report (lnz -> -inf, frac -> 0,
     members -> -1, n_modes decremented); None reports every mode.  Runs
-    go in the row slices of :func:`posterior_products`."""
+    go in the row slices of :func:`posterior_products`.  ``mesh`` splits
+    the runs over its dp rows, each row's share on its first device in a
+    thread of its own (``transform`` must accept points there, as a
+    runner's does), joined in run order on the result's device."""
+    if mesh is not None:
+        from nestfit_tpu_torch.parallel import mesh as _mesh
+
+        R = result.lnz.shape[0]
+
+        def row(k, rows, devices, _gen):
+            part = _mesh.shard_rows(result, rows, R, devices[0])
+            return posterior_modes(part, transform, max_modes, n_iter,
+                                   merge_fact, ztol)
+
+        return _mesh.gather_rows(_mesh.run_shards(mesh, None, R, row),
+                                 result.lnz.device)
     R = result.lnz.shape[0]
     step = _row_step(result)
     parts = []

@@ -39,10 +39,14 @@ What differs from the JAX package, by design:
   write their dropped entries to a spare column or back onto themselves
   instead of compacting by a boolean mask, and the constant tables are
   built once per device, so an iteration can be captured in a graph.
+* The mesh is an argument (``run_nested(..., mesh=)``), not ambient: each
+  dp row runs its share of the runs in a thread of its own, on its own
+  device and generator, in either mode (``parallel/mesh.py``).
 """
 
 import dataclasses
 import math
+import threading
 from typing import Callable
 
 import numpy as np
@@ -1170,16 +1174,18 @@ def _slim(bounds):
 #: serves the next call with the same likelihood (see ``graphs.py``)
 _WRAPPERS = {}
 _WRAPPERS_CAP = 16
+_WRAPPERS_LOCK = threading.Lock()
 
 
 def _memo(key, make):
     """The wrapper cached under ``key`` (built by ``make``), holding the
     objects whose ``id`` is in the key so no id is reused."""
-    if key not in _WRAPPERS:
-        while len(_WRAPPERS) >= _WRAPPERS_CAP:
-            _WRAPPERS.pop(next(iter(_WRAPPERS)))
-        _WRAPPERS[key] = make()
-    return _WRAPPERS[key][0]
+    with _WRAPPERS_LOCK:
+        if key not in _WRAPPERS:
+            while len(_WRAPPERS) >= _WRAPPERS_CAP:
+                _WRAPPERS.pop(next(iter(_WRAPPERS)))
+            _WRAPPERS[key] = make()
+        return _WRAPPERS[key][0]
 
 
 def _normalize_loglike(loglike, data):
@@ -1224,6 +1230,7 @@ def run_nested(
     segment_iters: int = 250,
     compact: bool = True,
     active=None,
+    mesh=None,
 ) -> NSResult:
     """Run ``n_runs`` independent nested-sampling fits in lockstep on
     ``gen.device``.
@@ -1241,7 +1248,59 @@ def run_nested(
     every run is done (``graphs.run_traced``: one captured CUDA graph per
     block on the card).  ``active`` marks rows that are born done
     (padding of a partial batch).
+
+    ``mesh`` (``parallel.make_mesh``) splits the runs into its dp rows'
+    contiguous shares: each row runs them on its first device, in a
+    thread of its own, with a generator seeded from one draw of ``gen``
+    per row (a single row on ``gen``'s device uses ``gen`` itself, so a
+    ``(1, 1)`` mesh is no mesh), and stops when its own runs are done.
+    ``data`` (or a ``parallel.ShardedBatch`` of it) is split with the
+    runs; ``loglike`` must accept points and data on every row's device.
+    The results are joined in run order on ``gen.device``.
     """
+    if mesh is None:
+        return _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
+                           segment_iters, compact, active)
+    from nestfit_tpu_torch.parallel import mesh as _mesh
+    from nestfit_tpu_torch.sampling import graphs
+
+    def row(k, rows, devices, gen_k):
+        d_k = _shard_data(data, k, rows, n_runs, devices[0])
+        a_k = None if active is None else np.asarray(active)[rows]
+        res = _run_nested(gen_k, loglike, ndim, rows.stop - rows.start,
+                          config, dtype, d_k, segment_iters, compact, a_k,
+                          shard=k)
+        return res, graphs.thread_stats()
+
+    parts = _mesh.run_shards(mesh, gen, n_runs, row)
+    if not (segment_iters and segment_iters > 0):
+        graphs.last_stats = sum((p[1] for p in parts), graphs.TracedStats())
+    return _mesh.gather_rows([p[0] for p in parts], gen.device)
+
+
+def _shard_data(data, k, rows, n_runs, device):
+    """Row ``k``'s share ``rows`` of ``data`` on ``device``: its shard
+    when ``data`` is a ``parallel.ShardedBatch``, else the ``rows`` of
+    every per-run leaf."""
+    from nestfit_tpu_torch.parallel import mesh as _mesh
+
+    if isinstance(data, _mesh.ShardedBatch):
+        if data.shard_channels or data.n_rows != n_runs \
+                or (data.bounds[k], data.bounds[k + 1]) != (rows.start,
+                                                            rows.stop):
+            raise ValueError("the sharded data does not match the runs' dp "
+                             "rows (shard it with shard_channels=False "
+                             "over the same mesh)")
+        return data.shards[k]
+    return None if data is None else _mesh.shard_rows(data, rows, n_runs,
+                                                      device)
+
+
+def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
+                segment_iters, compact, active, shard=0, capture=True):
+    """:func:`run_nested` on one device; ``shard`` is the dp row of a mesh
+    run and ``capture=False`` keeps the traced blocks out of CUDA graphs
+    (``graphs.run_traced``)."""
     cfg = config.resolved(ndim)
     loglike2 = _normalize_loglike(loglike, data)
     if cfg.log_zero > -1e60:
@@ -1252,8 +1311,8 @@ def run_nested(
 
         state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
         state = _apply_active(state, active)
-        return ns_finalize(graphs.run_traced(state, loglike2, data, cfg),
-                           cfg)
+        return ns_finalize(graphs.run_traced(state, loglike2, data, cfg,
+                                             shard, capture), cfg)
 
     # ceff mode keeps rejection sampling alive by construction (the
     # adaptive shrink holds acceptance at its target): no regime switch

@@ -136,7 +136,7 @@ def test_loglike_unit_matches_jax(ncomp):
     np.testing.assert_allclose(tr.loglike_unit(torch.as_tensor(u)).numpy(),
                                want, rtol=2e-4, atol=5e-2)
     theta = tr.transform(torch.as_tensor(u))
-    np.testing.assert_allclose(tr._log_likelihood_fused(theta).numpy(),
+    np.testing.assert_allclose(tr._log_likelihood(theta, fused=True).numpy(),
                                want, rtol=2e-4, atol=5e-2)
 
 

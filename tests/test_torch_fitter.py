@@ -23,6 +23,7 @@ from nestfit_tpu_torch import cube as tcube
 from nestfit_tpu_torch.cube import HdfStore
 from nestfit_tpu_torch.cube.fitter import CubeFitter, bucket_nlive
 from nestfit_tpu_torch.models import AmmoniaRunner
+from nestfit_tpu_torch.parallel import make_mesh
 from nestfit_tpu_torch.priors import get_irdc_priors
 from nestfit_tpu_torch.sampling import NSConfig, fit_single
 
@@ -308,21 +309,26 @@ def test_seed_replays_the_run(stack):
     assert lnz(2) != lnz(3)
 
 
-def test_device_rules(stack):
-    """``CubeFitter`` and ``fit_single`` default to the card and raise
-    without one; the multi-device arguments are not ported."""
+def test_device_rules(stack, tmp_path):
+    """``CubeFitter``, ``fit_single`` and a default mesh are on the card
+    and raise without one; ``host_shard`` with one process runs."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
     utrans = get_irdc_priors(vsys=0.0, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         CubeFitter(stack, utrans, AmmoniaRunner)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CubeFitter(stack, utrans, AmmoniaRunner, mesh=object(), device="cpu")
-    fitter = _fitter(stack)
-    for kw in ({"host_shard": True}, {"process_id": 0},
-               {"process_count": 2}):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fitter.fit_cube(store_name="unused", **kw)
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_mesh()
+    fitter = _fitter(stack, ncomp_max=1,
+                     ns_kwargs={"nlive": 16, "tol": 5.0, "max_iter": 300},
+                     n_post=16, segment_iters=64, mode_loss_retries=0,
+                     boundary_band=0)
+    name = str(tmp_path / "one_host")
+    assert fitter.fit_cube(store_name=name, seed=3, host_shard=True,
+                           process_id=0, process_count=1) is not None
+    with HdfStore(name) as store:
+        assert store.completed_pixels().size == len(VALID)
+        assert [p.name for p in store.all_chunk_paths()] == ["chunk_h0_0.hdf"]
     # fit_single: one spectrum, on the card unless asked for the CPU
     datas, noises, _, _ = stack.get_flat_batch()
     one = [torch.as_tensor(d[:1], dtype=torch.float32) for d in datas]

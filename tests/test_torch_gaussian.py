@@ -150,7 +150,7 @@ def test_loglike_unit_matches_jax(ncomp):
                                want, rtol=2e-4, atol=5e-2)
     # the flat-row path the card takes, here through K4's plain version
     theta = tr.transform(torch.as_tensor(u))
-    np.testing.assert_allclose(tr._log_likelihood_fused(theta).numpy(),
+    np.testing.assert_allclose(tr._log_likelihood(theta, fused=True).numpy(),
                                want, rtol=2e-4, atol=5e-2)
     np.testing.assert_allclose(tr.null_lnZ.numpy(), np.asarray(jr.null_lnZ),
                                rtol=1e-6)

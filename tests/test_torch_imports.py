@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``nestfit_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of ``nestfit_tpu``, and
-importing them builds no kernel.  Only ``nestfit_tpu_torch.cube.store``
-needs ``h5py``."""
+importing them builds no kernel and no native library (no compiler
+runs).  Only ``nestfit_tpu_torch.cube.store`` needs ``h5py``."""
 
 import pkgutil
 import subprocess
@@ -19,12 +19,29 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert "nestfit_tpu_torch.sampling.sampler" in mods
     for m in ("cube", "cube.cube", "cube.fits_io", "cube.fitter",
               "cube.products", "cube.records", "cube.store", "synth",
-              "utils.logging"):
+              "utils.logging", "parallel", "parallel.mesh",
+              "parallel.distributed", "native", "native.bindings",
+              "experiments", "experiments.varnoise", "utils.profiling"):
         assert f"nestfit_tpu_torch.{m}" in mods, m
     build = ROOT / "nestfit_tpu_torch" / "_build"
-    before = sorted(build.glob("*")) if build.exists() else []
+
+    def built():
+        # the native library: another test file may build it meanwhile
+        return sorted(p for p in build.glob("*")
+                      if not p.name.startswith("nestfit_native")) \
+            if build.exists() else []
+
+    before = built()
     code = "\n".join(
-        ["import importlib, runpy, sys"]
+        ["import importlib, os, runpy, subprocess, sys",
+         "class NoBuild(subprocess.Popen):",
+         "    def __init__(self, args, *a, **k):",
+         "        prog = args if isinstance(args, str) else args[0]",
+         "        name = os.path.basename(str(prog).split()[0])",
+         "        assert name not in ('nvcc', 'g++', 'c++', 'clang++',",
+         "                            'make'), f'an import ran {args!r}'",
+         "        super().__init__(args, *a, **k)",
+         "subprocess.Popen = NoBuild"]
         + [f"importlib.import_module({m!r})" for m in mods]
         + ["runpy.run_path('chip_smoke.py', run_name='chip_smoke')",
            "bad = sorted(m for m in sys.modules if m == 'jax'"
@@ -34,8 +51,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    after = sorted(build.glob("*")) if build.exists() else []
-    assert after == before
+    assert built() == before
 
 
 def test_chip_smoke_fails_without_a_card_or_the_port(tmp_path):

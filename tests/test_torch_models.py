@@ -101,7 +101,7 @@ def test_runner_kernel_path_matches_plain_path():
     u = torch.as_tensor(np.random.default_rng(4).uniform(
         0.2, 0.8, size=(3, R, 12)).astype(np.float32))
     theta = r.transform(u)
-    np.testing.assert_allclose(r._log_likelihood_fused(theta).numpy(),
+    np.testing.assert_allclose(r._log_likelihood(theta, fused=True).numpy(),
                                r.log_likelihood(theta).numpy(),
                                rtol=2e-4, atol=5e-2)
 
