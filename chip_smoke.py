@@ -100,7 +100,33 @@ Phases, in order; any failure exits non-zero:
                (e) the IRDC transform through K2/K3 on 4,096 vectors
                against the native C++ engine (built at first use) and
                256 of them against the scalar oracle.
-12. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
+12. aot      -- preparing a fit before its first batch
+               (``sampling/aot.py``): two fresh processes of this script
+               (``--aot-worker``) fit phase *traced*'s NH3 cube at 1024 px,
+               segmented rung 1, then traced rungs 1 and 2: (i) with no
+               preparation, then again after a stale plan (prepared at
+               R = 512, which misses); (ii) after ``precompile_fit`` of
+               each mode (the segmented plan holds the build and warm
+               tasks; the traced plan both rungs' programs, within the
+               cap).  (ii)'s fits equal (i)'s bit for bit (lnZ, n_dead,
+               calls, max lnL), the stale plan's too; (ii)'s traced first
+               calls run no warm-up block and capture no graph but a tail
+               block at ``max_iter``; the reports have no error and the
+               build task's cache hits and misses number 4.  Prints each
+               process's wall from its start to its first result, the
+               preparation's wall per task and the first-call walls with
+               and without preparation.
+13. plots    -- every ``StorePlotter`` data step (``plotting.py``) from the
+               store-free ``RecordSource``, on the card and on the CPU,
+               held against each other at phase *products*' bars: the map
+               steps on phase *products*' 65,536-px map, the per-pixel
+               steps (``spec_fit``, ``spec_fit_draws`` at 30 draws,
+               ``post_stack``, ``velo_2corr``, ``corner``, ``spec_grid``)
+               on a two-component pixel of phase *cube*'s case (b), each
+               step's wall printed; the float64 ``amm_predict`` on the card
+               within rtol 1e-8, atol 1e-5 of the oracle.  No figure is
+               drawn: the card's machine has no matplotlib.
+14. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
 
@@ -153,6 +179,9 @@ NATIVE_VOFF_MAX_CELLS, NATIVE_VOFF_MEDIAN_CELLS = 2.0, 1e-2
 ORACLE_VOFF_CELLS = 0.25
 SP_RTOL = 1e-5           # phase mesh (b): sp = 2 against sp = 1
 HOST_TIMEOUT = 600       # phase mesh (c): each worker process, seconds
+AOT_TIMEOUT = 600        # phase aot: each worker process, seconds
+AOT_STALE_PIXELS = 512   # phase aot: the stale plan's batch
+DRAWS = 30               # phase plots: spec_fit_draws' posterior draws
 WALLS = {}               # rung label -> wall seconds (run_rung)
 
 
@@ -626,15 +655,17 @@ def phase_forward(seed):
 
 
 def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
-             segment_iters=250, mesh=None):
+             segment_iters=250, mesh=None, prepared=False):
     """One ``fit_batch`` rung with every launch counter at 0 before it.
     Prints its wall, calls, convergence and launches (and, traced, its
     blocks, graph replays, done-mask reads, straggler blocks and peak
     memory); fails on a non-finite lnZ or posterior sample, on fewer
     than 98% converged runs or a stalled one, if a kernel in ``need``
     was never launched or one in ``idle`` was, or if a traced rung did
-    not run as CUDA graphs.  ``mesh`` passes on to ``fit_batch``; the wall
-    is kept in ``WALLS[label]``.  Returns ``(fit, launches)``."""
+    not run as CUDA graphs (replayed, and captured unless ``prepared``:
+    a program made ready by ``sampling.aot`` only replays).  ``mesh``
+    passes on to ``fit_batch``; the wall is kept in ``WALLS[label]``.
+    Returns ``(fit, launches)``."""
     import torch
     from nestfit_tpu_torch.sampling import fit_batch, graphs
 
@@ -657,7 +688,8 @@ def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
     if segment_iters == 0:
         st = graphs.last_stats
         traced = (f"{st.blocks} blocks ({st.replays} graph replays, "
-                  f"{st.captures} captures), {st.done_reads} host reads of "
+                  f"{st.captures} captures, {st.warmups} warm-up blocks), "
+                  f"{st.done_reads} host reads of "
                   f"the done mask, {st.straggler_blocks} blocks with < 10% "
                   "of the rows active, peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ")
@@ -690,7 +722,8 @@ def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
         if launches[k] != 0:
             fail(f"{label}: kernel {k} launched {launches[k]} times off its "
                  "path")
-    if segment_iters == 0 and (st.replays == 0 or st.captures == 0):
+    if segment_iters == 0 and (st.replays == 0 or (
+            st.captures == 0 and not prepared)):
         fail(f"{label}: the traced blocks did not run as CUDA graphs")
     return fit, launches
 
@@ -1315,9 +1348,11 @@ def tile_records(batches, side, reps):
     return out
 
 
-def phase_products(cases, counters):
+def phase_products(cases, counters, keep=None):
     """The map products of phase *cube*'s records on the card and on the
-    CPU, then at 65,536 pixels on the card.  Returns its launches."""
+    CPU, then at 65,536 pixels on the card.  Returns its launches; ``keep``
+    receives the 65,536-px map's table (without its posteriors), products
+    and a header for phase *plots*."""
     import torch
     from nestfit_tpu_torch.cube.products import postprocess_table
 
@@ -1385,6 +1420,13 @@ def phase_products(cases, counters):
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"products: kernel launches {json.dumps(launches)} (the path runs "
           "the plain model_predict, no hand-written kernel)", flush=True)
+    if keep is not None:
+        from nestfit_tpu_torch.synth import make_fake_header
+
+        for run in tab.runs.values():
+            run.pop("posteriors")
+        keep["tiled"] = (tab, prod, make_fake_header(
+            PRODUCT_SIDE, PRODUCT_SIDE, stack.cubes[0].xarr, rms=0.15))
     return launches
 
 
@@ -1734,6 +1776,357 @@ def phase_mesh(seed, counters, traced):
     return runs
 
 
+def aot_setup(seed, rows=TRACED_PIXELS):
+    """Phase *aot*'s runners (phase *traced*'s NH3 cube, rungs 1 and 2,
+    the first ``rows`` pixels) and configs."""
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.sampling import NSConfig
+    from nestfit_tpu_torch.synth import make_synth_cube_arrays
+
+    noise = 0.15
+    (xa11, d11), (xa22, d22), _ = make_synth_cube_arrays(
+        n_pix=TRACED_PIXELS, noise=noise, rng=np.random.default_rng(seed))
+    utrans = get_irdc_priors(device="cuda")
+    runners = {n: make_runner((xa11, xa22), (d11[:rows], d22[:rows]), noise,
+                              n, utrans) for n in (1, 2)}
+    configs = {n: NSConfig(**LADDER, flat_dims=tuple(utrans.flat_dims(n)))
+               for n in (1, 2)}
+    return runners, configs
+
+
+def aot_worker(mode, out, seed):
+    """One process of phase *aot*: ``lazy`` (i) fits segmented rung 1,
+    then traced rungs 1 and 2, with no preparation, then the traced rungs
+    again after a stale plan (R = 512); ``prepared`` (ii) runs
+    ``precompile_fit`` before each mode's first fit.  Pickles the results,
+    walls, traced stats, reports, kept graph keys and launches to
+    ``out``."""
+    import pickle
+
+    from nestfit_tpu_torch.ops import fused, tables
+    from nestfit_tpu_torch.sampling import aot, graphs
+
+    counters = {"hf_chi2_fused": fused.hf_chi2_fused,
+                "table_lerp": tables.table_lerp,
+                "tapered_invert": tables.tapered_invert,
+                "gauss_chi2_fused": fused.gauss_chi2_fused}
+    runners, configs = aot_setup(seed)
+    prepared = mode == "prepared"
+    res = {"fits": {}, "walls": {}, "stats": {}, "reports": {},
+           "launches": [], "graph_keys": {}, "plan_keys": {}}
+
+    def fit(label, ncomp, segment_iters):
+        name = f"aot {mode} {label}"
+        f, launches = run_rung(
+            name, seed + ncomp, runners[ncomp], TRACED_PIXELS,
+            configs[ncomp], counters, ["hf_chi2_fused", "table_lerp"]
+            + (["tapered_invert"] if ncomp == 2 else []),
+            ["gauss_chi2_fused"], segment_iters=segment_iters,
+            prepared=prepared and segment_iters == 0)
+        res.setdefault("first_result", time.time())
+        res["fits"][label] = {k: getattr(f.ns, k).cpu().numpy() for k in (
+            "lnz", "n_dead", "ncall", "max_loglike")}
+        res["walls"][label] = WALLS[name]
+        res["launches"].append(launches)
+        if segment_iters == 0:
+            res["stats"][label] = dataclasses.asdict(graphs.last_stats)
+
+    def prepare(label, plan):
+        rep = aot.compile_plan(plan)
+        res["reports"][label] = rep
+        for t in plan:
+            if t.graph_keys:
+                res["plan_keys"][t.name] = (t.key[1:], t.graph_keys)
+        print(f"aot {mode} prepare {label}: {rep['wall_s']:.3f} s, "
+              + ", ".join(f"{r['name']} {r['wall_s']:.3f} s"
+                          for r in rep["programs"]), flush=True)
+
+    if prepared:
+        prepare("segmented", aot.build_plan(runners[1], TRACED_PIXELS,
+                                            configs[1], segment_iters=250))
+    fit("segmented rung 1", 1, 250)
+    if prepared:
+        prepare("traced", [t for n in (1, 2) for t in aot.build_plan(
+            runners[n], TRACED_PIXELS, configs[n], segment_iters=0)])
+    fit("traced rung 1", 1, 0)
+    fit("traced rung 2", 2, 0)
+    if prepared:
+        # the graphs each prepared program holds after its fit
+        for name, (key, _) in res["plan_keys"].items():
+            prog = graphs._PROGRAMS.get(key)
+            res["graph_keys"][name] = None if prog is None \
+                else sorted(prog.graphs)
+    else:
+        # a stale plan: prepared at another batch, it misses
+        graphs.clear()
+        stale, _ = aot_setup(seed, AOT_STALE_PIXELS)
+        prepare("stale", [t for n in (1, 2) for t in aot.build_plan(
+            stale[n], AOT_STALE_PIXELS, configs[n], segment_iters=0)])
+        fit("stale traced rung 1", 1, 0)
+        fit("stale traced rung 2", 2, 0)
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def phase_aot(seed):
+    """Phase *aot*: two fresh processes of this script fit the NH3 cube of
+    phase *traced* (segmented rung 1, traced rungs 1 and 2), (i) with no
+    preparation, (ii) after ``precompile_fit``; the fits agree bit for
+    bit, (ii)'s traced first calls run no warm-up block and capture no
+    graph (but a tail block at ``max_iter``), and a stale plan (R = 512)
+    gives (i)'s results.  Prints each process's wall from its start to
+    its first result, the preparation's wall per task and the first-call
+    walls side by side.  Returns the fits' launches."""
+    import pickle
+    import tempfile
+
+    from nestfit_tpu_torch.sampling import NSConfig
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_aot_"))
+    res = {}
+    for mode in ("lazy", "prepared"):
+        out = tmp / f"{mode}.pkl"
+        t_spawn = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--aot-worker",
+             mode, str(out), str(seed)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            log = proc.communicate(timeout=AOT_TIMEOUT)[0]
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"aot: the {mode} worker ran past {AOT_TIMEOUT} s")
+        wall = time.time() - t_spawn
+        for line in log.splitlines():
+            if line.startswith("aot") or "FAIL" in line or "Error" in line:
+                print(f"  [{mode}] {line}", flush=True)
+        if proc.returncode != 0:
+            print(log[-3000:], flush=True)
+            fail(f"aot: the {mode} worker exited {proc.returncode}")
+        with open(out, "rb") as f:
+            res[mode] = pickle.load(f)
+        out.unlink()
+        print(f"aot {mode}: process wall {wall:.2f} s, start to first result "
+              f"{res[mode]['first_result'] - t_spawn:.2f} s", flush=True)
+    tmp.rmdir()
+    lazy, prep = res["lazy"], res["prepared"]
+    for label in ("segmented rung 1", "traced rung 1", "traced rung 2"):
+        print(f"aot first call {label}: {lazy['walls'][label]:.3f} s "
+              f"unprepared, {prep['walls'][label]:.3f} s prepared "
+              f"(card: {smi('name,power.limit')})", flush=True)
+
+    def same(a, b):
+        return all(np.array_equal(a[k], b[k]) for k in a)
+
+    for label in ("segmented rung 1", "traced rung 1", "traced rung 2"):
+        if not same(prep["fits"][label], lazy["fits"][label]):
+            fail(f"aot {label}: the prepared fit is not the unprepared one "
+                 "bit for bit")
+    for label in ("traced rung 1", "traced rung 2"):
+        if not same(lazy["fits"][f"stale {label}"], lazy["fits"][label]):
+            fail(f"aot stale {label}: not the unprepared fit bit for bit")
+        if lazy["stats"][f"stale {label}"]["warmups"] != 1:
+            fail(f"aot stale {label}: the stale plan did not miss")
+    for name, rep in prep["reports"].items():
+        names = [r["name"] for r in rep["programs"]]
+        build = rep["programs"][0]
+        if rep["n_errors"] or names[0] != "build" or \
+                build["cache_hits"] + build["cache_misses"] != 4:
+            fail(f"aot {name}: report {json.dumps(rep)}")
+    seg = [r["name"] for r in prep["reports"]["segmented"]["programs"]]
+    if seg != ["build", "warm@cuda:0"]:
+        fail(f"aot: the segmented plan holds {seg}")
+    plans = prep["plan_keys"]
+    if sorted(plans) != [f"n{n}:traced@{TRACED_PIXELS}" for n in (1, 2)]:
+        fail(f"aot: the traced plan's programs are {sorted(plans)}")
+    block = NSConfig(**LADDER).block_iters
+    for n, label in ((1, "traced rung 1"), (2, "traced rung 2")):
+        st = prep["stats"][label]
+        key = f"n{n}:traced@{TRACED_PIXELS}"
+        kept = prep["graph_keys"][key]
+        tails = [k for k in (kept or []) if tuple(k) not in
+                 set(map(tuple, plans[key][1]))]
+        print(f"aot prepared {label}: {st['warmups']} warm-up blocks, "
+              f"{st['captures']} captures ({len(tails)} tail blocks at "
+              f"max_iter: {tails}), {st['replays']} replays; planned keys "
+              f"{list(plans[key][1])}", flush=True)
+        if kept is None or st["warmups"] != 0 or \
+                st["captures"] != len(tails) or \
+                any(k[1] >= block for k in tails):
+            fail(f"aot prepared {label}: the first call was not warm")
+    print("aot: prepared fits bit for bit equal to unprepared ones, the "
+          "stale plan's too", flush=True)
+    return lazy["launches"] + prep["launches"]
+
+
+def _close_tree(label, card, cpu, path=""):
+    """Card against CPU, leaf by leaf, at phase *products*' bars: integers,
+    strings and NaN masks equal; float64 rtol 1e-9, atol 1e-12; float32
+    rtol 1e-5, atol 1e-6; model curves (``models`` and ``*_models``)
+    rtol 1e-5, atol 1e-5."""
+    if isinstance(card, dict):
+        if card.keys() != cpu.keys():
+            fail(f"{label}{path}: keys {sorted(card)} and {sorted(cpu)}")
+        for k in card:
+            _close_tree(label, card[k], cpu[k], f"{path}/{k}")
+        return
+    if isinstance(card, (list, tuple)):
+        if len(card) != len(cpu):
+            fail(f"{label}{path}: {len(card)} and {len(cpu)} items")
+        for i, (a, b) in enumerate(zip(card, cpu)):
+            _close_tree(label, a, b, f"{path}/{i}")
+        return
+    if card is None or isinstance(card, str):
+        if card != cpu:
+            fail(f"{label}{path}: {card!r} and {cpu!r}")
+        return
+    a, b = np.asarray(card), np.asarray(cpu)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        fail(f"{label}{path}: {a.dtype} {a.shape} and {b.dtype} {b.shape}")
+    if a.dtype.kind != "f":
+        if not np.array_equal(a, b):
+            fail(f"{label}{path}: card and CPU differ")
+        return
+    if not np.array_equal(np.isnan(a), np.isnan(b)):
+        fail(f"{label}{path}: NaN masks differ")
+    if "models" in path:
+        rtol, atol = 1e-5, 1e-5
+    elif a.dtype == np.float32:
+        rtol, atol = 1e-5, 1e-6
+    else:
+        rtol, atol = 1e-9, 1e-12
+    if not np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True):
+        fail(f"{label}{path}: beyond rtol {rtol:g}, atol {atol:g}; max "
+             f"|diff| {np.nanmax(np.abs(a - b)):.3g}")
+
+
+def _timed_steps(plotter, steps):
+    """Each data step's output and wall (the device synchronised)."""
+    import torch
+
+    out, walls = {}, {}
+    for name, fn in steps.items():
+        if plotter.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(plotter)
+        if plotter.device.type == "cuda":
+            torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    return out, walls
+
+
+MAP_STEPS = {
+    "nbest": lambda sp: sp.nbest_data(),
+    "conv_nbest": lambda sp: sp.nbest_data(conv=True),
+    "evidence_diff": lambda sp: sp.evidence_diff_data(),
+    "mext_evidence": lambda sp: sp.mext_evidence_data(),
+    "ncomp_metrics": lambda sp: sp.ncomp_metrics_data(),
+    "param_map MAP": lambda sp: sp.param_map_data(0, kind="MAP"),
+    "param_map median": lambda sp: sp.param_map_data(0, kind="median"),
+    "param_map error": lambda sp: sp.param_map_data(0, kind="error"),
+    "intensity peak": lambda sp: sp.intensity_data(kind="peak"),
+    "intensity int": lambda sp: sp.intensity_data(kind="int"),
+    "deblend_peak": lambda sp: sp.deblend_peak_data(),
+    "deblend_intintens": lambda sp: sp.deblend_intintens_data(),
+    "map_props": lambda sp: sp.map_props_data(),
+    "quan_props": lambda sp: sp.quan_props_data(),
+    "err_props": lambda sp: sp.err_props_data(),
+    "3d_volume": lambda sp: sp.volume_data(),
+    "world ticks": lambda sp: sp.world_tick_labels(
+        np.linspace(0, sp.n_lon - 1, 5), np.linspace(0, sp.n_lat - 1, 5)),
+}
+
+
+def phase_plots(tiled, synth):
+    """Phase *plots*: every ``StorePlotter`` data step from the store-free
+    source (``RecordSource``), on the card and on the CPU, held against
+    each other: the map steps on phase *products*' 65,536-px map
+    (``tiled``: its table, products and header), the per-pixel steps on
+    phase *cube*'s case (b) records (``synth``: stack, fitter, batches);
+    then the precision data in float64 against the oracle.  No figure is
+    drawn here."""
+    import tempfile
+
+    import torch
+    from nestfit_tpu_torch.cube.products import masked_evidence
+    from nestfit_tpu_torch.plotting import (RecordSource, StorePlotter,
+                                            amm_predict_precision_data)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_plots_")
+    print("plots: the data steps only; no figure is drawn on the card's "
+          "machine, which has no matplotlib", flush=True)
+    tab, prod, header = tiled
+    prod["mext_evidence"] = masked_evidence(
+        prod["evidence"], prod["conv_evidence"], PRODUCT_KERNEL)
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        p = prod if dev == "cuda" else {k: v.cpu() for k, v in prod.items()}
+        sp = StorePlotter(RecordSource(tab, p, header),
+                          plot_dir=Path(tmp.name) / dev, device=dev)
+        out[dev], walls[dev] = _timed_steps(sp, MAP_STEPS)
+    n = out["cuda"]["3d_volume"]["values"].size
+    print(f"plots map {tab.n_lon}x{tab.n_lat} px: step walls card / CPU "
+          + ", ".join(f"{k} {walls['cuda'][k]:.4f} / {walls['cpu'][k]:.4f} s"
+                      for k in MAP_STEPS)
+          + f"; {n} voxels; card: {smi('name,power.limit')}", flush=True)
+    _close_tree("plots map", out["cuda"], out["cpu"])
+    nb = out["cuda"]["nbest"]["image"]
+    if not np.isfinite(nb).all() or out["cuda"]["nbest"]["image"].shape \
+            != (tab.n_lat, tab.n_lon):
+        fail("plots map: the nbest image is not the finite map")
+
+    stack, fitter, batches = synth
+    n_lon, n_lat = stack.spatial_shape
+    table = product_table(stack, fitter, batches, n_lon, n_lat)
+    two = [(int(il), int(ib)) for il, ib, nbest in zip(
+        table.pix["i_lon"], table.pix["i_lat"], table.pix["nbest"])
+        if nbest == 2]
+    if not two:
+        fail("plots: the synth records hold no two-component pixel")
+    il, ib = two[0]
+    out, walls = {}, {}
+    for dev in ("cuda", "cpu"):
+        runner = product_runner(stack, dev)
+        pix_steps = {
+            "spec_fit": lambda sp: sp.spec_fit_data(il, ib, stack, runner),
+            "spec_fit_draws": lambda sp: sp.spec_fit_draws_data(
+                il, ib, stack, runner, n_draw=DRAWS),
+            "post_stack": lambda sp: sp.post_stack_data(il, ib),
+            "velo_2corr": lambda sp: sp.velo_2corr_data(il, ib),
+            "corner": lambda sp: sp.corner_data(il, ib),
+            "spec_grid": lambda sp: sp.spec_grid_data(stack, (il, ib)),
+        }
+        sp = StorePlotter(RecordSource(table, None, stack.simple_header),
+                          plot_dir=Path(tmp.name) / dev, device=dev)
+        out[dev], walls[dev] = _timed_steps(sp, pix_steps)
+    print(f"plots pixel ({il}, {ib}) of the synth records: step walls card "
+          "/ CPU " + ", ".join(
+              f"{k} {walls['cuda'][k]:.4f} / {walls['cpu'][k]:.4f} s"
+              for k in pix_steps), flush=True)
+    _close_tree("plots pixel", out["cuda"], out["cpu"])
+    draws = out["cuda"]["spec_fit_draws"]["draw_models"]
+    if any(d.shape[0] != DRAWS or not np.isfinite(d).all() for d in draws):
+        fail("plots pixel: the draws' models are not finite")
+
+    worst = {}
+    for trans_id in (1, 2):
+        got = {dev: amm_predict_precision_data(trans_id, device=dev,
+                                               dtype=torch.float64)
+               for dev in ("cuda", "cpu")}
+        _close_tree(f"plots precision t{trans_id}", got["cuda"], got["cpu"])
+        d = got["cuda"]
+        if not np.allclose(d["pred"], d["truth"], rtol=1e-8, atol=1e-5):
+            fail(f"plots precision t{trans_id}: float64 amm_predict beyond "
+                 "rtol 1e-8, atol 1e-5 of the oracle")
+        worst[trans_id] = float(d["diff"].max())
+    print(f"plots precision: float64 amm_predict on the card against the "
+          f"oracle, max |diff| {worst[1]:.3g} K (1,1), {worst[2]:.3g} K "
+          "(2,2)", flush=True)
+    tmp.cleanup()
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler`` in each sampler mode (its
     ``segment_iters``): device time by kernel and the device's busy
@@ -1790,6 +2183,8 @@ def main():
     ap.add_argument("--host-worker", nargs=5,
                     metavar=("RANK", "WORLD", "ADDRESS", "OUT", "SEED"),
                     help="run one process of phase mesh (c) and exit")
+    ap.add_argument("--aot-worker", nargs=3, metavar=("MODE", "OUT", "SEED"),
+                    help="run one process of phase aot and exit")
     args = ap.parse_args()
 
     import torch
@@ -1803,6 +2198,10 @@ def main():
     if args.host_worker:
         rank, world, address, out, seed = args.host_worker
         host_worker(int(rank), int(world), address, out, int(seed))
+        return
+    if args.aot_worker:
+        mode, out, seed = args.aot_worker
+        aot_worker(mode, out, int(seed))
         return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1846,12 +2245,23 @@ def main():
     runs += phase_cube(args.seed, CUBE_PIXELS, counters, cube_cases)
     print(f"phase cube: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    runs.append(phase_products(cube_cases, counters))
+    plots_in = {}
+    runs.append(phase_products(cube_cases, counters, plots_in))
+    plots_in["synth"] = cube_cases["synth"]
     del cube_cases
     print(f"phase products: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     runs += phase_mesh(args.seed, counters, traced)
     print(f"phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the workers of phase aot share the card: hand back the cached blocks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs += phase_aot(args.seed)
+    print(f"phase aot: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_plots(plots_in["tiled"], plots_in["synth"])
+    del plots_in
+    print(f"phase plots: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -72,3 +72,8 @@ def hf_predict(trans: Transition, spec_dnu, spec_t0, spec_tbg,
     tex = torch.as_tensor(tex, dtype=spec_dnu.dtype, device=spec_dnu.device)
     return brightness(tau, tex, spec_t0, spec_tbg)
 
+
+def iemtex(x):
+    """``1/(exp(x) - 1)``, the exact form of the excitation term
+    (``brightness`` computes it inline)."""
+    return 1.0 / torch.expm1(x)

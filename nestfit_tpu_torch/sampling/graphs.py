@@ -1,5 +1,5 @@
-"""The traced mode's blocks as CUDA graphs (the port's counterpart of
-``nestfit_tpu/sampling/aot.py``: it runs prebuilt programs).
+"""The traced mode's blocks as CUDA graphs (``sampling/aot.py`` prepares
+them before a fit's first batch).
 
 The JAX package traces ``run_nested(segment_iters=0)`` into one program:
 ``ns_init``, a ``lax.while_loop`` of blocks (``block_iters`` candidate
@@ -60,6 +60,7 @@ class TracedStats:
     done_reads: int = 0        # host reads of the [R] done mask
     straggler_blocks: int = 0  # blocks run with < 10% of the rows active
     eager_blocks: int = 0      # blocks run eagerly on the card (no capture)
+    warmups: int = 0           # warm-up blocks (a new program's first)
 
     def __add__(self, other: "TracedStats") -> "TracedStats":
         return TracedStats(*(getattr(self, f.name) + getattr(other, f.name)
@@ -170,6 +171,16 @@ class _Program:
             self.pool = graph.pool()
         return graph, per_replay
 
+    def graph(self, i0: int, n_iters: int, stats: TracedStats):
+        """The graph of the block of ``n_iters`` iterations from ``i0``,
+        captured at its first use: the block reads ``i`` only as
+        ``i % bound_every``, so the graph serves every such ``i0``."""
+        key = (i0 % max(1, self.cfg.bound_every), n_iters)
+        if key not in self.graphs:
+            self.graphs[key] = self._capture(i0, n_iters)
+            stats.captures += 1
+        return self.graphs[key]
+
     def run_block(self, i0: int, n_iters: int, stats: TracedStats):
         stats.blocks += 1
         if not self.on_card:
@@ -187,25 +198,35 @@ class _Program:
                 self._eager(i0, n_iters)
             torch.cuda.current_stream().wait_stream(self.stream)
             self.warm = True
+            stats.warmups += 1
             return
-        key = (i0 % max(1, self.cfg.bound_every), n_iters)
-        if key not in self.graphs:
-            self.graphs[key] = self._capture(i0, n_iters)
-            stats.captures += 1
-        graph, per_replay = self.graphs[key]
+        graph, per_replay = self.graph(i0, n_iters, stats)
         graph.replay()
         stats.replays += 1
         _build.add_launches(per_replay)
+
+
+def program_key(loglike2, shard: int, capture: bool, cfg, shape, dtype,
+                device, n_bounds: int, data) -> tuple:
+    """The key a program is kept under: the likelihood, the dp row, the
+    capture flag, the resolved config, the state's ``[R, L, D]`` shape,
+    dtype, device and bounds tuple length, and the data's shapes."""
+    return (id(loglike2), shard, capture, cfg, tuple(shape), dtype,
+            torch.device(device), n_bounds,
+            tuple((tuple(x.shape), x.dtype, x.device) for x in _leaves(data)))
+
+
+def _state_key(state: _s._State, loglike2, data, cfg, shard: int,
+               capture: bool) -> tuple:
+    return program_key(loglike2, shard, capture, cfg, state.u.shape,
+                       state.u.dtype, state.u.device, len(state.bounds), data)
 
 
 def _program(state: _s._State, loglike2, data, cfg, shard: int,
              capture: bool) -> _Program:
     """The kept program for this call, loaded with ``state`` and
     ``data``, or a new one."""
-    key = (id(loglike2), shard, capture, cfg, tuple(state.u.shape),
-           state.u.dtype, state.u.device, len(state.bounds),
-           tuple((tuple(x.shape), x.dtype, x.device)
-                 for x in _leaves(data)))
+    key = _state_key(state, loglike2, data, cfg, shard, capture)
     with _LOCK:
         prog = _PROGRAMS.get(key)
         if prog is None:
@@ -220,6 +241,38 @@ def _program(state: _s._State, loglike2, data, cfg, shard: int,
             return _PROGRAMS[key]
     prog.load(state, data)
     return prog
+
+
+def prepare(state: _s._State, loglike2, data, cfg, blocks, key,
+            shard: int = 0) -> TracedStats:
+    """Make the program :func:`run_traced` would make for ``state`` (the
+    same ``loglike2``, data, config and row) ready before its first call:
+    run its warm-up block and capture the graph of every ``(i0,
+    n_iters)`` in ``blocks``, each under its key ``(i0 % bound_every,
+    n_iters)``, and keep it.  ``state`` must draw from a throwaway
+    generator; a later call loads its own state and generator.  ``key``
+    is the program key the caller planned for (:func:`program_key`): a
+    state whose key differs raises.  On the CPU, where :func:`run_traced`
+    keeps no program, the warm-up block runs and nothing is kept."""
+    cfg = cfg.resolved(state.u.shape[-1])
+    if _state_key(state, loglike2, data, cfg, shard, True) != key:
+        raise ValueError("the traced program's key is not the planned one "
+                         "(likelihood, config, shapes, dtype or device "
+                         "differ)")
+    stats = TracedStats()
+    first = min(max(1, cfg.block_iters), cfg.max_iter - state.i)
+    if not state.u.is_cuda:
+        _Program(state, loglike2, data, cfg).run_block(state.i, first, stats)
+        stats.warmups += 1
+        return stats
+    prog = _program(state, loglike2, data, cfg, shard, True)
+    prog.state.gen.set_state(state.gen.get_state())
+    if not prog.warm:
+        prog.run_block(state.i, first, stats)
+    for i0, n_iters in blocks:
+        prog.graph(i0, n_iters, stats)
+    torch.cuda.synchronize(state.u.device)
+    return stats
 
 
 def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,

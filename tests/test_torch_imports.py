@@ -1,8 +1,12 @@
 """The port stands alone: no module of ``nestfit_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of ``nestfit_tpu``, and
 importing them builds no kernel and no native library (no compiler
-runs).  Only ``nestfit_tpu_torch.cube.store`` needs ``h5py``."""
+runs).  Only ``nestfit_tpu_torch.cube.store`` needs ``h5py``, and
+nothing needs matplotlib until a figure is drawn.  The port has every
+module of the JAX package with its public names, and its flat API holds
+the JAX package's."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -21,7 +25,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
               "cube.products", "cube.records", "cube.store", "synth",
               "utils.logging", "parallel", "parallel.mesh",
               "parallel.distributed", "native", "native.bindings",
-              "experiments", "experiments.varnoise", "utils.profiling"):
+              "experiments", "experiments.varnoise", "utils.profiling",
+              "sampling.aot", "plotting", "wcs"):
         assert f"nestfit_tpu_torch.{m}" in mods, m
     build = ROOT / "nestfit_tpu_torch" / "_build"
 
@@ -79,6 +84,95 @@ def test_only_the_store_needs_h5py():
          "import nestfit_tpu_torch as ntt",
          "assert ntt.DataCube is ntt.cube.DataCube",
          "print(failed); assert failed == ['nestfit_tpu_torch.cube.store']"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _public_names(path, imports=False):
+    """The public top-level names a module defines (and, with
+    ``imports``, those it imports)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif imports and isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_every_jax_module_and_public_name_has_its_port():
+    """Module by module, the JAX package's public top-level names are
+    the port's, but for the Pallas switches, which mean nothing here."""
+    jax_root, port_root = ROOT / "nestfit_tpu", ROOT / "nestfit_tpu_torch"
+    missing = {}
+    for path in sorted(jax_root.rglob("*.py")):
+        port = port_root / path.relative_to(jax_root)
+        assert port.exists(), port
+        lost = _public_names(path) - _public_names(port)
+        if lost:
+            missing[str(port.relative_to(ROOT))] = sorted(lost)
+    assert missing == {
+        "nestfit_tpu_torch/ops/fused.py": ["INTERPRET", "LANE"],
+        "nestfit_tpu_torch/ops/tables.py": ["INTERPRET", "LANE"],
+        "nestfit_tpu_torch/priors/distributions.py": ["USE_PALLAS_TABLES"],
+    }
+
+
+def test_flat_api_holds_the_jax_package_names():
+    """Every name ``nestfit_tpu/__init__.py`` exports resolves on the port's
+    package, lazily: importing the package loads no torch."""
+    names = _public_names(ROOT / "nestfit_tpu" / "__init__.py",
+                          imports=True)
+    assert {"fit_batch", "make_mesh", "NSConfig", "CKMS"} <= names
+    code = "\n".join(
+        ["import sys", "import nestfit_tpu_torch as ntt",
+         "assert 'torch' not in sys.modules, 'torch at import'",
+         f"names = {sorted(names)!r}",
+         "missing = [n for n in names if not hasattr(ntt, n)]",
+         "assert not missing, missing",
+         "assert ntt.__version__ == '0.1.0'",
+         "assert ntt.fit_batch is ntt.sampling.fit.fit_batch",
+         "assert ntt.make_mesh is ntt.parallel.mesh.make_mesh",
+         "assert ntt.ammonia is ntt.models.ammonia",
+         "assert set(names) <= set(dir(ntt))"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_plots_need_matplotlib_only_to_draw(tmp_path):
+    """With matplotlib blocked, ``plotting`` imports, a ``StorePlotter``
+    over the records runs its data steps, and a renderer raises."""
+    code = "\n".join(
+        ["import sys", "sys.modules['matplotlib'] = None",
+         "sys.path.insert(0, 'tests')",
+         "import numpy as np",
+         "from nestfit_tpu_torch import plotting",
+         "from nestfit_tpu_torch.cube import products",
+         "from nestfit_tpu_torch.models import MODELS",
+         "from test_torch_products import _batches",
+         "table = products.FitTable.from_records(",
+         "    _batches('ammonia', 0, False), 9, 7, 2, 6, 11.0,",
+         "    MODELS['ammonia'], with_posteriors=True)",
+         "src = plotting.RecordSource(table)",
+         f"sp = plotting.StorePlotter(src, plot_dir={str(tmp_path)!r},",
+         "                            device='cpu')",
+         "h = sp.post_stack_data(0, 0)['hists']",
+         "assert len(h) == 18 and np.isfinite(h[0]['density']).all()",
+         "assert sp.velo_2corr_data(0, 0)['hist'].sum() == 64",
+         "assert sp.corner_data(7, 0)['ndim'] == 6",
+         "d = plotting.amm_predict_precision_data(device='cpu')",
+         "assert d['pred'].shape == d['truth'].shape",
+         "try:",
+         "    sp.plot_corner(7, 0)",
+         "except ImportError:",
+         "    pass",
+         "else:",
+         "    raise AssertionError('drew without matplotlib')",
+         "assert 'matplotlib.pyplot' not in sys.modules"])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -132,3 +132,17 @@ def test_hf_chi2_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="multiple"):
         tam.fused_chi2(ts, p)
 
+
+
+def test_iemtex_matches_jax():
+    """``hyperfine.iemtex``, ``1/(exp(x) - 1)``, on both sides of the
+    excitation range, in float32 and float64."""
+    from nestfit_tpu.models import hyperfine as jhf
+    from nestfit_tpu_torch.models import hyperfine as thf
+
+    x = np.random.default_rng(3).uniform(1e-3, 40.0, 257)
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.float64,
+                                                    jnp.float64)):
+        got = thf.iemtex(torch.as_tensor(x, dtype=dt)).numpy()
+        want = np.asarray(jhf.iemtex(jnp.asarray(x, dtype=jdt)))
+        np.testing.assert_allclose(got, want, rtol=1e-6)
