@@ -37,22 +37,33 @@ Phases, in order; any failure exits non-zero:
                two-component pixels and not on the others.
 7. n2h+ ladder  -- the same on a seeded two-component N2H+ (1-0) cube
                (400 ch, noise 0.1).
-8. traced   -- the traced sampler (``segment_iters=0``): every block of
-               candidate iterations and slice fill a replayed CUDA graph.
-               (a) Graph against the eager block loop from the same
-               generator state, 64 px of the NH3 ladder cube, rungs 1 and
-               2, and a second graph run on the first one's kept graphs:
-               lnZ, n_dead, max lnL and calls bit for bit; (b) both
-               rungs at 1024 px under the ladder's gates, each pixel's
-               lnZ held against phase *ladder*'s (median difference
-               within two median combined errors); (c) a 64-px rung 1 with
-               each knob (``efr``, ``ceff``, ``log_zero``, ``pwrap_dims``)
-               and a 64-px Gaussian rung 2 (K4 in the graph), each under
-               the same gates; (d) ``posterior_modes`` of the 1024-px rung
-               2, a finite mode on every pixel.  Walls, replays, host
-               reads of the done mask, blocks with < 10% of the rows
-               active, launches (per captured block times replays) and
-               peak memory are printed.
+8. traced   -- the traced sampler (``segment_iters=0``, the default of
+               ``fit_batch``, ``run_nested`` and ``fit_single``): every
+               block of candidate iterations and slice fill a replayed
+               CUDA graph.  (a) Graph against the eager block loop from
+               the same generator state, 64 px of the NH3 ladder cube,
+               rungs 1 and 2, and a second graph run on the first one's
+               kept graphs: lnZ, n_dead, max lnL and calls bit for bit;
+               (b) both rungs at 1024 px, ``fit_batch`` called at its
+               defaults, under the ladder's gates, every block but the
+               program's warm-up block a replay and K1, K2 (and K3 on rung
+               2) launched by replays, each pixel's lnZ held against
+               phase *ladder*'s (median difference within two median
+               combined errors); (c) a 64-px rung 1 with each knob
+               (``efr``, ``ceff``, ``log_zero``, ``pwrap_dims``) and a
+               64-px Gaussian rung 2 (K4 in the graph), each under the
+               same gates; (d) ``posterior_modes`` of the 1024-px rung 2,
+               a finite mode on every pixel; (e) the rung-2 runner built
+               by ``AmmoniaRunner.from_data`` from the cube's ``(xarr,
+               data, noise, trans_id)`` tuples: ``loglike_unit`` on 51,200
+               proposals bit for bit the directly built runner's, and
+               ``loglikelihood`` (NumPy in and out) equal to it through
+               K1, K2 and K3; then ``fit_single`` at its defaults (nlive
+               400, tol 0.5, traced) on one pixel: converged, a finite
+               lnZ, graph replays.  Walls, replays, host reads of the done
+               mask, blocks with < 10% of the rows active, launches (per
+               captured block times replays; those by replays apart in
+               (b)) and peak memory are printed.
 9. cube     -- the cube pipeline through ``CubeFitter`` at its production
                defaults (SNR buckets, batch 1024, mode-loss retry,
                boundary pass): (a) the committed fixture cutouts
@@ -136,6 +147,7 @@ The line before last is ``{"kernels": [...]}``; the last line is
 """
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -183,6 +195,7 @@ AOT_TIMEOUT = 600        # phase aot: each worker process, seconds
 AOT_STALE_PIXELS = 512   # phase aot: the stale plan's batch
 DRAWS = 30               # phase plots: spec_fit_draws' posterior draws
 WALLS = {}               # rung label -> wall seconds (run_rung)
+REPLAYED = {}            # rung label -> launches by graph replays (run_rung)
 
 
 def fail(msg):
@@ -654,44 +667,73 @@ def phase_forward(seed):
                     runner.loglike_unit(u, plain=True), atol=5e-2)
 
 
+@contextlib.contextmanager
+def replay_launches(counters):
+    """Tally, by kernel name, the launches that graph replays add to the
+    counters (``_build.add_launches``) while the context is open."""
+    from nestfit_tpu_torch.ops import _build
+
+    names = {fn: k for k, fn in counters.items()}
+    counts = dict.fromkeys(counters, 0)
+    add = _build.add_launches
+
+    def counted(per_replay):
+        for fn, n in per_replay.items():
+            counts[names[fn]] += n
+        add(per_replay)
+
+    _build.add_launches = counted
+    try:
+        yield counts
+    finally:
+        _build.add_launches = add
+
+
 def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
              segment_iters=250, mesh=None, prepared=False):
     """One ``fit_batch`` rung with every launch counter at 0 before it.
     Prints its wall, calls, convergence and launches (and, traced, its
-    blocks, graph replays, done-mask reads, straggler blocks and peak
-    memory); fails on a non-finite lnZ or posterior sample, on fewer
-    than 98% converged runs or a stalled one, if a kernel in ``need``
-    was never launched or one in ``idle`` was, or if a traced rung did
-    not run as CUDA graphs (replayed, and captured unless ``prepared``:
-    a program made ready by ``sampling.aot`` only replays).  ``mesh``
-    passes on to ``fit_batch``; the wall is kept in ``WALLS[label]``.
-    Returns ``(fit, launches)``."""
+    blocks, graph replays, done-mask reads, straggler blocks, the
+    launches the replays added and peak memory); fails on a non-finite
+    lnZ or posterior sample, on fewer than 98% converged runs or a
+    stalled one, if a kernel in ``need`` was never launched or one in
+    ``idle`` was, or if a traced rung did not run as CUDA graphs
+    (replayed, and captured unless ``prepared``: a program made ready by
+    ``sampling.aot`` only replays).  ``segment_iters=None`` calls
+    ``fit_batch`` at its default, the traced mode.  ``mesh`` passes on to
+    ``fit_batch``; the wall is kept in ``WALLS[label]`` and the launches
+    by replays in ``REPLAYED[label]``.  Returns ``(fit, launches)``."""
     import torch
     from nestfit_tpu_torch.sampling import fit_batch, graphs
 
+    mode = {} if segment_iters is None else {"segment_iters": segment_iters}
+    is_traced = not segment_iters
     gen = torch.Generator(device="cuda")
     gen.manual_seed(gen_seed)
     for fn in counters.values():
         fn.launches = 0
+    graphs.last_stats = graphs.TracedStats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fit = fit_batch(gen, runner, n_pix, cfg, segment_iters=segment_iters,
-                    device="cuda", mesh=mesh)
-    torch.cuda.synchronize()
+    with replay_launches(counters) as replayed:
+        fit = fit_batch(gen, runner, n_pix, cfg, device="cuda", mesh=mesh,
+                        **mode)
+        torch.cuda.synchronize()
     wall = WALLS[label] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     z = fit.lnz.cpu().numpy()
     ncall = fit.ns.ncall.cpu().numpy().astype(np.int64)
     conv = fit.ns.converged.cpu().numpy()
     traced = ""
-    if segment_iters == 0:
+    if is_traced:
         st = graphs.last_stats
         traced = (f"{st.blocks} blocks ({st.replays} graph replays, "
-                  f"{st.captures} captures, {st.warmups} warm-up blocks), "
-                  f"{st.done_reads} host reads of "
-                  f"the done mask, {st.straggler_blocks} blocks with < 10% "
-                  "of the rows active, peak device memory "
+                  f"{st.captures} captures, {st.warmups} warm-up blocks, "
+                  f"{st.eager_blocks} eager blocks), {st.done_reads} host "
+                  f"reads of the done mask, {st.straggler_blocks} blocks "
+                  "with < 10% of the rows active, replays' launches "
+                  f"{json.dumps(replayed)}, peak device memory "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, ")
     print(f"{label}: wall {wall:.2f} s, {traced}evals/px {ncall.mean():.1f}, "
           f"converged {int(conv.sum())}/{n_pix}, lnZ median "
@@ -722,9 +764,10 @@ def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
         if launches[k] != 0:
             fail(f"{label}: kernel {k} launched {launches[k]} times off its "
                  "path")
-    if segment_iters == 0 and (st.replays == 0 or (
+    if is_traced and (st.replays == 0 or (
             st.captures == 0 and not prepared)):
         fail(f"{label}: the traced blocks did not run as CUDA graphs")
+    REPLAYED[label] = replayed
     return fit, launches
 
 
@@ -823,12 +866,14 @@ def phase_traced(seed, counters, ladder, keep=None):
     """The traced mode (``segment_iters=0``): blocks of candidate
     iterations and a slice fill, each a replayed CUDA graph.  (a) Graph
     against eager on the first 64 pixels of the NH3 ladder cube, rungs 1
-    and 2, bit for bit; (b) both rungs at full width (1024 px) under the
-    ladder's gates, each pixel's lnZ held against phase *ladder*'s
-    segmented lnZ; (c) one 64-px rung 1 per sampler knob and a 64-px
-    Gaussian rung 2 (K4 in the graph); (d) ``posterior_modes`` of the
-    full-width rung 2.  Returns the launches of (b) and (c); ``keep``
-    receives (b)'s ``(lnz, lnz_err)`` by ncomp for phase *mesh*."""
+    and 2, bit for bit; (b) both rungs at full width (1024 px) through
+    ``fit_batch`` at its defaults under the ladder's gates, each pixel's
+    lnZ held against phase *ladder*'s segmented lnZ; (c) one 64-px rung 1
+    per sampler knob and a 64-px Gaussian rung 2 (K4 in the graph); (d)
+    ``posterior_modes`` of the full-width rung 2; (e)
+    :func:`traced_entry_points`.  Returns the launches of (b), (c) and
+    (e)'s ``fit_single``; ``keep`` receives (b)'s ``(lnz, lnz_err)`` by
+    ncomp for phase *mesh*."""
     import torch
     from nestfit_tpu_torch.priors import get_gaussian_priors, get_irdc_priors
     from nestfit_tpu_torch.sampling import NSConfig, graphs, posterior_modes
@@ -886,16 +931,31 @@ def phase_traced(seed, counters, ladder, keep=None):
             fail(f"traced ncomp={ncomp}: the graph runs are not the eager "
                  "one, or the second did not reuse the first's graphs")
 
-    # (b) full width, both rungs, against the segmented ladder
+    # (b) full width, both rungs, at fit_batch's defaults (the traced
+    # mode), against the segmented ladder
     runs, fits = [], {}
     for ncomp in (1, 2):
+        label = f"traced rung ncomp={ncomp} R={n_pix}"
+        need = ["hf_chi2_fused", "table_lerp"] \
+            + (["tapered_invert"] if ncomp == 2 else [])
         fits[ncomp], launches = run_rung(
-            f"traced rung ncomp={ncomp} R={n_pix}", seed + ncomp,
-            nh3(ncomp, n_pix), n_pix, config(ncomp), counters,
-            ["hf_chi2_fused", "table_lerp"]
-            + (["tapered_invert"] if ncomp == 2 else []),
-            ["gauss_chi2_fused"], segment_iters=0)
+            label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
+            counters, need, ["gauss_chi2_fused"], segment_iters=None)
         runs.append(launches)
+        st, replayed = graphs.last_stats, REPLAYED[label]
+        print(f"traced rung ncomp={ncomp} at the defaults: "
+              f"{json.dumps(dataclasses.asdict(st))}; launches by replays "
+              + ", ".join(f"{k} {replayed[k]} of {launches[k]}"
+                          for k in need)
+              + " (the rest: the initial live points, the program's "
+              "warm-up block, the posterior products)", flush=True)
+        # a new program's first block is its warm-up, run eagerly; every
+        # other block is a replay, and each kernel rose by replays
+        if st.eager_blocks or st.warmups > 1 or \
+                st.blocks != st.warmups + st.replays or \
+                any(replayed[k] <= 0 for k in need):
+            fail(f"{label}: a block at the defaults was not a replay, or a "
+                 "kernel of the path was not launched by replays")
         if keep is not None:
             keep[ncomp] = (fits[ncomp].lnz.cpu().numpy(),
                            fits[ncomp].lnz_err.cpu().numpy())
@@ -954,8 +1014,86 @@ def phase_traced(seed, counters, ladder, keep=None):
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     if not ok:
         fail("traced modes: a pixel without a finite mode")
+
+    # (e) the rung-2 runner from (xarr, data, noise, trans_id) tuples, the
+    # host entry point, and fit_single at its defaults on one pixel
+    t_e = time.perf_counter()
+    runs.append(traced_entry_points(seed, counters, utrans, nh3(2, n_pix),
+                                    (xa11, xa22), (d11, d22), noise))
+    print(f"traced (e): {time.perf_counter() - t_e:.2f} s", flush=True)
     graphs.clear()
     return runs
+
+
+def traced_entry_points(seed, counters, utrans, direct, xa, data, noise):
+    """Phase *traced* (e): ``AmmoniaRunner.from_data`` on the NH3 cube's
+    ``(xarr, data, noise, trans_id)`` tuples at rung 2 against the
+    directly built runner ``direct``, ``loglike_unit`` on 51,200 proposals
+    bit for bit; ``loglikelihood`` (NumPy in, NumPy out) equal to it and
+    through K1, K2 and K3; then ``fit_single`` at its defaults on the
+    cube's first pixel: converged, a finite lnZ, CUDA-graph replays.
+    Returns ``fit_single``'s launches."""
+    import torch
+    from nestfit_tpu_torch.models import AmmoniaRunner
+    from nestfit_tpu_torch.sampling import fit_single, graphs
+
+    n_pix = data[0].shape[0]
+
+    def tuples(rows):
+        return [(x, d[:rows], np.full(rows, noise), tid)
+                for tid, (x, d) in enumerate(zip(xa, data), start=1)]
+
+    runner = AmmoniaRunner.from_data(tuples(n_pix), utrans, ncomp=2)
+    if runner.device != direct.device:
+        fail(f"traced (e): from_data built its runner on {runner.device}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 300)
+    u = torch.rand((51200 // n_pix, n_pix, runner.ndim), generator=gen,
+                   device="cuda")
+    got, want = runner.loglike_unit(u), direct.loglike_unit(u)
+    for fn in counters.values():
+        fn.launches = 0
+    host = runner.loglikelihood(u.cpu().numpy())
+    torch.cuda.synchronize()
+    used = {k: fn.launches for k, fn in counters.items()}
+    same = bool(torch.equal(got, want))
+    same_host = isinstance(host, np.ndarray) and np.array_equal(
+        host, got.cpu().numpy())
+    print(f"traced (e): from_data rung 2 loglike_unit on {u.shape[0] * n_pix}"
+          f" proposals bit for bit the direct runner's: {same}; "
+          f"loglikelihood (NumPy) equal: {same_host}, launches "
+          f"{json.dumps(used)}", flush=True)
+    if not (same and same_host) or not all(
+            used[k] > 0 for k in ("hf_chi2_fused", "table_lerp",
+                                  "tapered_invert")) \
+            or used["gauss_chi2_fused"]:
+        fail("traced (e): from_data or loglikelihood is not the direct "
+             "runner's likelihood through its kernels")
+
+    one = AmmoniaRunner.from_data(tuples(1), utrans, ncomp=2)
+    gen.manual_seed(seed + 301)
+    for fn in counters.values():
+        fn.launches = 0
+    graphs.last_stats = graphs.TracedStats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = fit_single(gen, one)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    st = graphs.last_stats
+    z = float(fit.lnz[0])
+    print(f"traced (e): fit_single at its defaults (nlive 400, tol 0.5, "
+          f"ncomp 2, traced) on pixel 0: wall {wall:.2f} s, lnZ {z:.3f} +- "
+          f"{float(fit.lnz_err[0]):.3f}, converged "
+          f"{bool(fit.ns.converged[0])}, evals {int(fit.ns.ncall[0])}, "
+          f"{json.dumps(dataclasses.asdict(st))}, kernels "
+          f"{json.dumps(launches)}", flush=True)
+    if not (bool(fit.ns.converged[0]) and np.isfinite(z)
+            and st.replays > 0):
+        fail("traced (e): fit_single did not converge to a finite lnZ "
+             "through CUDA-graph replays")
+    return launches
 
 
 def ladder_decision(recs, thresh):

@@ -70,6 +70,19 @@ class Runner:
             raise ValueError(f"prior transformer covers {utrans.n_param} "
                              f"parameters, model has {self.n_model}")
 
+    @classmethod
+    def from_data(cls, spec_data, utrans, **kwargs):
+        """Build from ``(xarr, data, noise, trans_id)`` tuples, one
+        spectrum each, on the runner's ``device`` (``kwargs``, default
+        ``"cuda"``); ``kwargs`` pass on to the constructor."""
+        device = resolve_device(kwargs.pop("device", "cuda"))
+        spectra = tuple(
+            cls.model.make_model_spectrum(xarr, data, noise, trans_id=tid,
+                                          device=device)
+            for (xarr, data, noise, tid) in spec_data
+        )
+        return cls(spectra, utrans, device=device, **kwargs)
+
     def placed(self, devices) -> "Runner":
         """A copy of this runner on a mesh row: spectra and prior tables on
         ``devices[0]``, and each spectrum's channel terms split into
@@ -181,6 +194,13 @@ class Runner:
         """Ln-likelihood straight from unit-cube coordinates (the
         function the sampler calls)."""
         return self.log_likelihood(self.transform(u, plain), plain)
+
+    def loglikelihood(self, utheta):
+        """Host entry point: the ln-likelihood of unit-cube points
+        ``utheta`` (array-like ``[..., ndim]``, as float32) through
+        :meth:`loglike_unit` on the runner's device, as a NumPy array."""
+        u = torch.as_tensor(utheta, dtype=torch.float32, device=self.device)
+        return self.loglike_unit(u).cpu().numpy()
 
 
 def _channel_slices(spectra, devices):

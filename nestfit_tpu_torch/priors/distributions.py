@@ -108,10 +108,11 @@ def ppf_interp(dist: Distribution, u, plain: bool = False):
     return table_ops.table_lerp(dist.ppf, scaled)
 
 
-def cdf_interp(dist_or_cdf, u, xax=None, dx=None):
+def cdf_interp(dist_or_cdf, u, xax=None, dx=None, cdf=None):
     """Inverse-interpolate cumulative probability ``u`` onto the
     parameter axis, from a :class:`Distribution` or a batched CDF array
-    ``[..., N]`` (with ``xax``/``dx``)."""
+    ``[..., N]`` (with ``xax``/``dx``).  ``cdf`` is accepted and ignored,
+    as in the JAX package."""
     if isinstance(dist_or_cdf, Distribution):
         cdf, xax, dx = dist_or_cdf.cdf, dist_or_cdf.xax, dist_or_cdf.dx
     else:

@@ -85,7 +85,7 @@ def fit_batch(
     config: NSConfig = NSConfig(),
     n_post: int = 0,
     dtype=torch.float32,
-    segment_iters: int = 250,
+    segment_iters: int = 0,
     data=None,
     active=None,
     device="cuda",
@@ -94,14 +94,16 @@ def fit_batch(
     """Fit a batch of ``n_runs`` pixels with nested sampling.
 
     The runner's spectra hold per-pixel data with leading dim ``n_runs``
-    (or unbatched data shared by every run); ``data``
-    (``runner.data_tree()``-structured) substitutes fresh pixel data.
-    ``gen`` is a caller-seeded ``torch.Generator`` on ``device``, where the
-    runner must live too.  ``active`` marks padding rows of a partial
-    batch as born done.  ``segment_iters=0`` runs the traced sampler (CUDA
-    graphs on the card) on the runner's own spectra: ``data`` must then
-    be None.  The default stays the segmented sampler, where the JAX
-    package defaults to the traced one.
+    (or unbatched data shared by every run).  ``gen`` is a caller-seeded
+    ``torch.Generator`` on ``device``, where the runner must live too.
+    ``active`` marks padding rows of a partial batch as born done.
+
+    ``segment_iters=0`` (the default, as in the JAX package) runs the
+    traced sampler (CUDA graphs on the card) on the runner's own spectra:
+    ``data`` must then be None.  ``segment_iters > 0`` runs the segmented
+    host loop of bounded segments, which takes ``data``
+    (``runner.data_tree()``-structured) to substitute fresh pixel data
+    while reusing this runner's channel terms.
 
     ``mesh`` (``parallel.make_mesh``) splits the batch over its dp rows:
     each row fits its contiguous share of the pixels (sampler, posterior
@@ -243,6 +245,7 @@ def fit_single(gen: torch.Generator, runner: Runner,
                config: NSConfig = NSConfig(nlive=400, tol=0.5),
                n_post: int = 0, dtype=torch.float32,
                device="cuda") -> FitResult:
-    """Fit one spectrum (single-fit defaults nlive 400, tol 0.5)."""
+    """Fit one spectrum (single-fit defaults nlive 400, tol 0.5) with
+    :func:`fit_batch` at its defaults: the traced sampler."""
     return fit_batch(gen, runner, 1, config, n_post=n_post, dtype=dtype,
                      device=device)

@@ -1227,7 +1227,7 @@ def run_nested(
     config: NSConfig = NSConfig(),
     dtype=torch.float32,
     data=None,
-    segment_iters: int = 250,
+    segment_iters: int = 0,
     compact: bool = True,
     active=None,
     mesh=None,
@@ -1236,18 +1236,19 @@ def run_nested(
     ``gen.device``.
 
     ``loglike(u[..., n_runs, ndim]) -> [..., n_runs]`` includes the prior
-    transform (or ``loglike(u, data)`` with ``data`` given).  The host
-    loop runs bounded segments of at most ``segment_iters`` iterations:
+    transform (or ``loglike(u, data)`` with ``data`` given).
+    ``segment_iters=0`` (the default, as in the JAX package) runs the
+    traced mode: blocks of ``block_iters`` candidate iterations and a
+    masked slice fill, with neither regime switch nor compaction, until
+    every run is done (``graphs.run_traced``: one captured CUDA graph per
+    block on the card).  ``segment_iters > 0`` runs the host loop of
+    bounded segments of at most ``segment_iters`` iterations instead:
     short candidate segments (``switch_iters``) while the acceptance EMA
     is healthy, then the kill+slice program, with zero-eval probes that
     switch back when the estimated acceptance recovers and a short
     probation segment confirms it; straggler runs are compacted into
-    power-of-four batch classes.  ``segment_iters=0`` runs the traced
-    mode instead: blocks of ``block_iters`` candidate iterations and a
-    masked slice fill, with neither regime switch nor compaction, until
-    every run is done (``graphs.run_traced``: one captured CUDA graph per
-    block on the card).  ``active`` marks rows that are born done
-    (padding of a partial batch).
+    power-of-four batch classes.  ``active`` marks rows that are born
+    done (padding of a partial batch).
 
     ``mesh`` (``parallel.make_mesh``) splits the runs into its dp rows'
     contiguous shares: each row runs them on its first device, in a

@@ -10,7 +10,7 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir="nestfit_trace"):
+def trace(log_dir="/tmp/nestfit_trace"):
     """Profile the block with ``torch.profiler`` (CPU, and CUDA when a
     card is present) and export a Chrome trace into ``log_dir``
     (``trace.json``, viewable in Perfetto).  Yields the profiler; the

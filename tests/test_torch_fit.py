@@ -15,6 +15,7 @@ sampler's own remedy for mode loss, a repeated run.
 """
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -29,11 +30,14 @@ from nestfit_tpu.models import ammonia as jam
 from nestfit_tpu.priors import get_irdc_priors as jax_priors
 from nestfit_tpu.sampling import NSConfig as JaxConfig
 from nestfit_tpu.sampling.fit import fit_batch as jax_fit_batch
+from nestfit_tpu.sampling.fit import fit_single as jax_fit_single
+from nestfit_tpu.sampling.sampler import run_nested as jax_run_nested
 
 from nestfit_tpu_torch import synth
 from nestfit_tpu_torch.models import AmmoniaRunner, ammonia
 from nestfit_tpu_torch.priors import get_irdc_priors
-from nestfit_tpu_torch.sampling import NSConfig, fit_batch
+from nestfit_tpu_torch.sampling import NSConfig, fit_batch, fit_single
+from nestfit_tpu_torch.sampling.sampler import run_nested
 
 N_PIX, NOISE = 4, 0.4
 R = 2 * N_PIX          # two copies of every pixel
@@ -120,3 +124,54 @@ def test_default_device_needs_a_card(cube):
     with pytest.raises(RuntimeError, match="cuda"):
         fit_batch(torch.Generator(), runner, R, NSConfig(nlive=20))
 
+
+
+def test_sampler_defaults_match_jax():
+    """``fit_batch``, ``run_nested`` and ``fit_single`` default to the
+    JAX package's sampler mode, the traced one, and ``fit_single`` to its
+    single-fit config."""
+    for port, ref in ((fit_batch, jax_fit_batch),
+                      (run_nested, jax_run_nested)):
+        got = inspect.signature(port).parameters["segment_iters"].default
+        want = inspect.signature(ref).parameters["segment_iters"].default
+        assert got == want == 0, port.__name__
+    got = inspect.signature(fit_single).parameters["config"].default
+    want = inspect.signature(jax_fit_single).parameters["config"].default
+    assert (got.nlive, got.tol) == (want.nlive, want.tol) == (400, 0.5)
+
+
+def _leaves(obj, where=""):
+    """``{path: tensor}`` of a ``FitResult``'s tensors."""
+    if isinstance(obj, torch.Tensor):
+        return {where: obj}
+    if isinstance(obj, dict):
+        items = obj.items()
+    elif dataclasses.is_dataclass(obj):
+        items = ((f.name, getattr(obj, f.name))
+                 for f in dataclasses.fields(obj))
+    else:
+        return {}
+    return {k: v for name, o in items
+            for k, v in _leaves(o, f"{where}.{name}").items()}
+
+
+def test_fit_single_is_the_traced_fit_batch(cube):
+    """``fit_single`` is ``fit_batch`` of one run in the traced mode, bit
+    for bit, from generators seeded alike."""
+    torch.set_num_threads(2)
+    (xa11, d11), (xa22, d22), _ = cube
+    spectra = [ammonia.make_ammonia_spectrum(xa, d[:1], np.full(1, NOISE),
+                                             trans_id=tid, device="cpu")
+               for xa, d, tid in ((xa11, d11, 1), (xa22, d22, 2))]
+    runner = AmmoniaRunner(spectra, get_irdc_priors(device="cpu"), ncomp=1,
+                           device="cpu")
+    cfg = NSConfig(nlive=50, tol=1.0, init_factor=4)
+    one = fit_single(torch.Generator().manual_seed(4), runner, cfg,
+                     device="cpu")
+    batch = fit_batch(torch.Generator().manual_seed(4), runner, 1, cfg,
+                      segment_iters=0, device="cpu")
+    assert bool(one.ns.converged[0]) and one.lnz.shape == (1,)
+    got, want = _leaves(one), _leaves(batch)
+    assert set(got) == set(want) and ".ns.lnz" in got
+    for k in want:
+        assert torch.equal(got[k], want[k]), k

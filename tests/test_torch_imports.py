@@ -3,8 +3,9 @@
 importing them builds no kernel and no native library (no compiler
 runs).  Only ``nestfit_tpu_torch.cube.store`` needs ``h5py``, and
 nothing needs matplotlib until a figure is drawn.  The port has every
-module of the JAX package with its public names, and its flat API holds
-the JAX package's."""
+module of the JAX package with its public names, every public function
+and method with the JAX package's arguments and defaults, and its flat
+API holds the JAX package's."""
 
 import ast
 import pkgutil
@@ -176,3 +177,108 @@ def test_plots_need_matplotlib_only_to_draw(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _signatures(path):
+    """``{name: [(arg, default source or None), ...]}`` of a module's
+    public functions and of the public methods (``__init__`` and
+    ``__call__`` too) of its public classes."""
+    def args(fn):
+        a = fn.args
+        pos = a.posonlyargs + a.args
+        defaults = [None] * (len(pos) - len(a.defaults)) + list(a.defaults)
+        out = list(zip((x.arg for x in pos), defaults))
+        out += list(zip((x.arg for x in a.kwonlyargs), a.kw_defaults))
+        out += [(f"*{x.arg}", None) for x in (a.vararg,) if x]
+        out += [(f"**{x.arg}", None) for x in (a.kwarg,) if x]
+        return [(n, None if d is None else ast.unparse(d)) for n, d in out]
+
+    def public(name):
+        return not name.startswith("_") or name in ("__init__", "__call__")
+
+    funcs = (ast.FunctionDef, ast.AsyncFunctionDef)
+    out = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, funcs) and public(node.name):
+            out[node.name] = args(node)
+        elif isinstance(node, ast.ClassDef) and public(node.name):
+            for sub in node.body:
+                if isinstance(sub, funcs) and public(sub.name):
+                    out[f"{node.name}.{sub.name}"] = args(sub)
+    return out
+
+
+#: the port's names for JAX arguments: a ``torch.Generator`` for a key
+RENAMED = {"key": "gen"}
+#: keywords the port adds: the device an entry point runs on, a mesh
+#: where the JAX package takes its mesh from the ambient context, the
+#: plain versions of the kernels
+ADDED = {"device", "mesh", "plain"}
+#: (module, function, argument) -> (JAX default, port default)
+DEFAULTS = {
+    ("utils/logging.py", "get_logger", "name"):
+        ("'nestfit_tpu'", "'nestfit_tpu_torch'"),
+    # both float64
+    ("cube/products.py", "nans", "dtype"): ("None", "_F64"),
+    # the port resolves these per mode (``segment_iters``)
+    **{("sampling/aot.py", "build_plan", a): (j, "_UNSET") for a, j in (
+        ("n_post", "0"), ("r_classes", "None"),
+        ("kinds_full", "('init', 'cand', 'slice', 'fin', 'finalize', "
+                       "'rebuild')"),
+        ("kinds_classes", "('slice', 'rebuild')"))},
+}
+#: (module, function) -> more keywords the port adds: the JAX plan
+#: always prepares the segmented sampler, the port's either mode
+ADDED_TO = {("sampling/aot.py", "build_plan"): {"segment_iters"}}
+
+
+def test_every_jax_function_has_its_arguments_and_defaults():
+    """Every public function and public method of a public class of the
+    JAX package (outside ``ops/``, whose tile sizes and Pallas switches
+    have no counterpart) is in the port's module of the same path with
+    every argument name, in the same order, and equal defaults, but for
+    the named differences above (``jnp.<dtype>`` defaults are the port's
+    ``torch.<dtype>``)."""
+    jax_root, port_root = ROOT / "nestfit_tpu", ROOT / "nestfit_tpu_torch"
+    diffs, used = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = str(path.relative_to(jax_root))
+        if rel.startswith("ops/"):
+            continue
+        port_sigs = _signatures(port_root / rel)
+        for name, jargs in _signatures(path).items():
+            where = f"{rel}::{name}"
+            if name not in port_sigs:
+                diffs.append(f"{where}: missing")
+                continue
+            pargs = dict(port_sigs[name])
+            want = [(RENAMED.get(a, a), d) for a, d in jargs]
+            more = ADDED_TO.get((rel, name), set())
+            if more & set(pargs):
+                used.add((rel, name))
+            extra = [a for a in pargs if a not in dict(want)
+                     and a not in ADDED | more]
+            if extra:
+                diffs.append(f"{where}: adds {extra}")
+            order = [a for a in pargs if a in dict(want)]
+            if order != [a for a, _ in want if a in pargs]:
+                diffs.append(f"{where}: argument order {order}")
+            for a, d in want:
+                if a not in pargs:
+                    diffs.append(f"{where}: lacks {a}")
+                    continue
+                got = pargs[a]
+                named = DEFAULTS.get((rel, name.split(".")[-1], a))
+                if named is not None:
+                    used.add((rel, name.split(".")[-1], a))
+                    ok = (d, got) == named
+                elif d is not None and d.startswith("jnp."):
+                    ok = got == "torch." + d[len("jnp."):]
+                else:
+                    ok = got == d
+                if not ok:
+                    diffs.append(f"{where}: {a}={got}, the JAX package's "
+                                 f"{d}")
+    assert diffs == [], "\n".join(diffs)
+    # every named difference is still one
+    assert used == set(DEFAULTS) | set(ADDED_TO)

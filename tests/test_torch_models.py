@@ -14,15 +14,21 @@ import torch
 
 import jax.numpy as jnp
 
+from nestfit_tpu import priors as jax_priors_mod
+from nestfit_tpu.models import RUNNERS as JAX_RUNNERS
 from nestfit_tpu.models import AmmoniaRunner as JaxRunner
 from nestfit_tpu.models import ammonia as jam
-from nestfit_tpu.models.tables import AMMONIA_TRANSITIONS
+from nestfit_tpu.models.tables import (
+    AMMONIA_TRANSITIONS,
+    DIAZENYLIUM_TRANSITIONS,
+)
 from nestfit_tpu.ops import fused as jax_fused
 from nestfit_tpu.priors import get_irdc_priors as jax_priors
 from nestfit_tpu.utils import freq_axis_from_velocity
 
 from nestfit_tpu_torch import convert
-from nestfit_tpu_torch.models import AmmoniaRunner, ammonia as tam
+from nestfit_tpu_torch import priors as priors_mod
+from nestfit_tpu_torch.models import RUNNERS, AmmoniaRunner, ammonia as tam
 from nestfit_tpu_torch.priors import get_irdc_priors
 
 BASE = np.array([0.0, 12.0, 5.0, 14.5, 0.4, 0.1])
@@ -124,6 +130,61 @@ def test_loglike_unit_matches_jax(ncomp):
         np.asarray(jr.loglike_unit(jnp.asarray(u))), rtol=2e-4, atol=5e-2)
     np.testing.assert_allclose(tr.null_lnZ.numpy(), np.asarray(jr.null_lnZ),
                                rtol=1e-6)
+
+
+#: per model: its prior constructor, its parameters per component and
+#: the spectra's (velocity axis, rest frequency, trans_id, noise)
+FROM_DATA = {
+    "ammonia": ("get_irdc_priors", 6, [
+        (np.linspace(-30, 30, 380), AMMONIA_TRANSITIONS[t - 1].nu, t, 0.2)
+        for t in (1, 2)]),
+    "gaussian": ("get_gaussian_priors", 3, [
+        (np.arange(-12, 12, 0.158), 23.6944955e9, -1, 0.1)]),
+    "diazenylium": ("get_diazenylium_priors", 4, [
+        (np.arange(-20, 20, 0.1), DIAZENYLIUM_TRANSITIONS[t - 1].nu, t, 0.1)
+        for t in (1, 3)]),
+}
+
+
+@pytest.mark.parametrize("ncomp", [1, 2])
+@pytest.mark.parametrize("model", sorted(FROM_DATA))
+def test_from_data_loglikelihood_matches_jax(model, ncomp):
+    """``Runner.from_data`` of both packages on the same seeded
+    ``(xarr, data, noise, trans_id)`` tuples, and ``loglikelihood``
+    (NumPy in, NumPy out) on the same unit-cube points, at
+    test_loglike_unit_matches_jax's tolerance; the port's is its
+    ``loglike_unit``.  Without ``device="cpu"`` the port's runner is on
+    the card, so it raises here."""
+    R = 8
+    prior, n_model, axes = FROM_DATA[model]
+    rng = np.random.default_rng(40 + ncomp)
+    spec_data = [(freq_axis_from_velocity(v, nu),
+                  rng.normal(scale=noise, size=(R, v.size)), noise, tid)
+                 for v, nu, tid, noise in axes]
+    jr = JAX_RUNNERS[model].from_data(
+        spec_data, getattr(jax_priors_mod, prior)(vsys=0.0), ncomp=ncomp)
+    cls = RUNNERS[model]
+    tr = cls.from_data(spec_data,
+                       getattr(priors_mod, prior)(vsys=0.0, device="cpu"),
+                       ncomp=ncomp, device="cpu")
+    assert type(tr) is cls and tr.ncomp == ncomp
+    assert tr.device == torch.device("cpu")
+    for js, ts in zip(jr.spectra, tr.spectra, strict=True):
+        for f in ("dnu", "data", "noise"):
+            assert getattr(ts, f).device == tr.device
+            np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                          np.asarray(getattr(js, f)))
+        assert (ts.rest_freq, ts.trans_id) == (js.rest_freq, js.trans_id)
+    u = rng.uniform(size=(2, R, n_model * ncomp)).astype(np.float32)
+    got = tr.loglikelihood(u)
+    assert isinstance(got, np.ndarray) and got.shape == (2, R)
+    np.testing.assert_array_equal(
+        got, tr.loglike_unit(torch.as_tensor(u)).numpy())
+    np.testing.assert_allclose(got, jr.loglikelihood(u), rtol=2e-4,
+                               atol=5e-2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cls.from_data(spec_data, tr.utrans, ncomp=ncomp)
 
 
 def test_hf_chi2_wrapper_rejects_bad_input():
