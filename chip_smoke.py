@@ -88,7 +88,13 @@ Phases, in order; any failure exits non-zero:
                on components below ``conv_nbest``; then the synthetic
                case's records tiled into a 256x256 map (65,536 px) on the
                card: the wall of each step, the bytes copied host to
-               device, the peak device memory.
+               device, the peak device memory.  Case (b) and the tiled map
+               also run at finite PDF bins (33 edges per parameter over
+               the IRDC priors' support): on every run a pixel holds,
+               ``post_pdfs`` and ``conv_post_pdfs`` finite and each
+               histogram summing to 1 within 1e-4, ``conv_marginals``
+               finite inside the bins, ``hf_deblended`` finite on the
+               components ``nbest_MAP`` holds where ``nbest`` >= 1.
 11. mesh    -- multi-device and multi-process fitting on the one card:
                (a) dp: the NH3 rungs of phase *traced* on a dp = 2 mesh
                (both rows on cuda:0, a host thread each), traced then
@@ -108,9 +114,10 @@ Phases, in order; any failure exits non-zero:
                differ, phase *cube*'s gates on the union; (d)
                ``run_varnoise_sweep`` at its defaults and at the JAX
                package's slow-test settings with that test's assertions;
-               (e) the IRDC transform through K2/K3 on 4,096 vectors
-               against the native C++ engine (built at first use) and
-               256 of them against the scalar oracle.
+               (e) the IRDC transform through K2/K3 (and at ncomp 4 the
+               dense placement step) on 4,096 vectors at ncomp 2, 3 and
+               4 against the native C++ engine (built at first use), and
+               256 ncomp-2 vectors against the scalar oracle.
 12. aot      -- preparing a fit before its first batch
                (``sampling/aot.py``): two fresh processes of this script
                (``--aot-worker``) fit phase *traced*'s NH3 cube at 1024 px,
@@ -130,7 +137,8 @@ Phases, in order; any failure exits non-zero:
 13. plots    -- every ``StorePlotter`` data step (``plotting.py``) from the
                store-free ``RecordSource``, on the card and on the CPU,
                held against each other at phase *products*' bars: the map
-               steps on phase *products*' 65,536-px map, the per-pixel
+               steps on phase *products*' 65,536-px map at finite bins
+               (the 3-D volume must hold voxels), the per-pixel
                steps (``spec_fit``, ``spec_fit_draws`` at 30 draws,
                ``post_stack``, ``velo_2corr``, ``corner``, ``spec_grid``)
                on a two-component pixel of phase *cube*'s case (b), each
@@ -180,14 +188,29 @@ CUBE_PIXELS = 1024       # the synthetic cube of phase cube, 32 x 32
 PRODUCT_SIDE = 256       # phase products: 65,536 px, the survey's 1e4-1e5
 PRODUCT_KERNEL = 1.0     # Gaussian sigma (px) of both product smoothings
 PDF_BINS = 200           # edges of the products' histograms
+# phase products' finite-bin runs: 33 edges per parameter over the support
+# of get_irdc_priors (nestfit_tpu_torch/priors/constructors.py) -- voff,
+# trot, tex, ntot, sigm and the constant ortho fraction -- ending at the
+# float32 grid ends, so that every posterior sample falls inside
+PAR_BINS = np.array([
+    np.linspace(float(np.float32(lo)), float(np.float32(hi)), 33)
+    for lo, hi in ((-4.0, 4.0), (7.0, 30.0), (2.80, 12.06), (12.5, 16.5),
+                   (0.067, 2.067), (-1.0, 1.0))])
+PDF_SUM_ATOL = 1e-4      # each finite histogram sums to 1
 MODEL_PRODUCTS = ("peak_intensity", "integrated_intensity", "hf_deblended")
 TRACED_PIXELS = 1024     # phase traced at full width
 GRAPH_PIXELS = 64        # phase traced's graph-vs-eager and knob runs
 # phase mesh (e): the port's plain float32 transform against the native
-# engine's (tests/test_torch_native.py) and the scalar oracle
+# engine's at ncomp 2-4 (tests/test_torch_native.py, where the JAX
+# package's own transform is as far from the engine: on-grid centroids
+# within 1.75 / 3.99 / 3.992 cells at ncomp 2 / 3 / 4, median <= 8.8e-6;
+# centroids off the grid, ROADMAP R3, in both and <= 1.3e-7 apart
+# relative, on <= 41 of 4096 rows) and the scalar oracle
 # (tests/test_torch_oracle.py)
 NATIVE_INDEP_ATOL = 2e-2
-NATIVE_VOFF_MAX_CELLS, NATIVE_VOFF_MEDIAN_CELLS = 2.0, 1e-2
+NATIVE_VOFF_MAX_CELLS = {2: 2.0, 3: 4.5, 4: 4.5}
+NATIVE_VOFF_MEDIAN_CELLS = 1e-2
+NATIVE_OFF_GRID_RTOL, NATIVE_OFF_GRID_SHARE = 1e-6, 0.02
 ORACLE_VOFF_CELLS = 0.25
 SP_RTOL = 1e-5           # phase mesh (b): sp = 2 against sp = 1
 HOST_TIMEOUT = 600       # phase mesh (c): each worker process, seconds
@@ -1369,10 +1392,12 @@ def product_table(stack, fitter, batches, n_lon, n_lat):
                                  with_posteriors=True)
 
 
-def check_product_shapes(label, prod, n_lon, n_lat, fitter, stack):
-    """Every product has its store-spec shape (tests/test_fit_cube.py)."""
+def check_product_shapes(label, prod, n_lon, n_lat, fitter, stack,
+                         n_edges=PDF_BINS):
+    """Every product has its store-spec shape (tests/test_fit_cube.py);
+    ``n_edges`` is the number of PDF bin edges."""
     m, p = fitter.ncomp_max, fitter.runner_cls.model.N
-    M, h = len(prod["marg_quantiles"]), PDF_BINS - 1
+    M, h = len(prod["marg_quantiles"]), n_edges - 1
     nb = prod["pdf_bins"].shape[1]
     want = {"evidence": (m + 1, n_lat, n_lon), "nbest": (n_lat, n_lon),
             "conv_nbest": (n_lat, n_lon), "conv_evidence": (m + 1, n_lat,
@@ -1415,6 +1440,59 @@ def check_product_gates(label, prod, batches, n_lon, n_lat, ncomp):
                 not (torch.isnan(pmap[c]).all(0) == ~sel).all():
             fail(f"{label}: nbest_MAP component {c} is not finite exactly "
                  "where conv_nbest exceeds it")
+
+
+def check_finite_pdfs(label, prod, tab):
+    """The PDF products at finite bins: on every run a pixel holds,
+    ``post_pdfs`` and ``conv_post_pdfs`` finite with each histogram
+    summing to 1 within ``PDF_SUM_ATOL``, and ``conv_marginals`` finite
+    and inside the bins; NaN on the components a run does not have and
+    on the runs a pixel does not hold; ``hf_deblended`` finite on every
+    component ``nbest_MAP`` holds (those below ``conv_nbest``) of every
+    pixel with ``nbest`` >= 1."""
+    import torch
+
+    m = tab.ncomp_max
+    held = torch.zeros((m, tab.n_lat, tab.n_lon), dtype=torch.bool)
+    for ncomp, rec in tab.runs.items():
+        rows = np.asarray(rec["pix_row"])
+        held[ncomp - 1, tab.pix["i_lat"][rows], tab.pix["i_lon"][rows]] = True
+    # the bin centres, rounded as the float32 quantiles are
+    bins = prod["pdf_bins"].cpu().float()
+    lo, hi = bins[:, 0], bins[:, -1]
+    n_hist = 0
+    for r in range(m):
+        for c in range(m):
+            have = held[r] if c <= r else torch.zeros_like(held[r])
+            for key in ("post_pdfs", "conv_post_pdfs", "conv_marginals"):
+                x = prod[key][r, c].cpu()          # [p, h or Q, b, l]
+                if not torch.isfinite(x[..., have]).all() or \
+                        not torch.isnan(x[..., ~have]).all():
+                    fail(f"{label} {key}: run {r + 1} component {c} is not "
+                         "finite exactly on the pixels that hold the run")
+                vals = x[..., have]                 # [p, h or Q, n]
+                if key == "conv_marginals":
+                    if ((vals < lo[:, None, None]) |
+                            (vals > hi[:, None, None])).any():
+                        fail(f"{label} conv_marginals: run {r + 1} "
+                             f"component {c} outside the bins")
+                    continue
+                dev = (vals.double().sum(1) - 1.0).abs()
+                n_hist += dev.numel()
+                if dev.numel() and float(dev.max()) > PDF_SUM_ATOL:
+                    fail(f"{label} {key}: run {r + 1} component {c}: a "
+                         f"histogram sums to 1 +- {float(dev.max()):.2e}")
+    nbest, conv = prod["nbest"].cpu(), prod["conv_nbest"].cpu()
+    hfdb = prod["hf_deblended"].cpu()               # [t, m, h, b, l]
+    for c in range(m):
+        sel = (nbest >= 1) & (conv > c)
+        if not torch.isfinite(hfdb[:, c][..., sel]).all():
+            fail(f"{label} hf_deblended: component {c} not finite where "
+                 "nbest >= 1 and nbest_MAP holds it")
+    print(f"{label}: {n_hist} histograms finite and summing to 1 (atol "
+          f"{PDF_SUM_ATOL:g}), conv_marginals inside the bins, hf_deblended "
+          f"finite on {int((nbest >= 1).sum())} pixels with nbest >= 1",
+          flush=True)
 
 
 def compare_products(label, card, cpu):
@@ -1488,9 +1566,10 @@ def tile_records(batches, side, reps):
 
 def phase_products(cases, counters, keep=None):
     """The map products of phase *cube*'s records on the card and on the
-    CPU, then at 65,536 pixels on the card.  Returns its launches; ``keep``
-    receives the 65,536-px map's table (without its posteriors), products
-    and a header for phase *plots*."""
+    CPU, at the default PDF bins and, for case (b), at ``PAR_BINS`` too;
+    then at 65,536 pixels on the card, at both.  Returns its launches;
+    ``keep`` receives the 65,536-px map's table (without its posteriors),
+    finite-bin products and a header for phase *plots*."""
     import torch
     from nestfit_tpu_torch.cube.products import postprocess_table
 
@@ -1498,22 +1577,30 @@ def phase_products(cases, counters, keep=None):
         fn.launches = 0
     for label, (stack, fitter, batches) in cases.items():
         n_lon, n_lat = stack.spatial_shape
-        out = {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            out[dev] = postprocess_table(
-                product_table(stack, fitter, batches, n_lon, n_lat), stack,
-                product_runner(stack, dev), evid_kernel=PRODUCT_KERNEL,
-                post_kernel=PRODUCT_KERNEL, device=dev)
-            print(f"products {label}: {n_lon}x{n_lat} px on {dev}, "
-                  f"{time.perf_counter() - t0:.2f} s", flush=True)
-        name = f"products {label}"
-        check_product_shapes(name, out["cuda"], n_lon, n_lat, fitter,
-                             stack)
-        check_product_gates(name, out["cuda"], batches, n_lon, n_lat,
-                            fitter.ncomp_max)
-        compare_products(name, out["cuda"], out["cpu"])
-        del out
+        bin_runs = [("", None)]
+        if label == "synth":
+            bin_runs.append((" finite bins", PAR_BINS))
+        for tag, par_bins in bin_runs:
+            name = f"products {label}{tag}"
+            out = {}
+            for dev in ("cuda", "cpu"):
+                tab = product_table(stack, fitter, batches, n_lon, n_lat)
+                t0 = time.perf_counter()
+                out[dev] = postprocess_table(
+                    tab, stack, product_runner(stack, dev),
+                    par_bins=par_bins, evid_kernel=PRODUCT_KERNEL,
+                    post_kernel=PRODUCT_KERNEL, device=dev)
+                print(f"{name}: {n_lon}x{n_lat} px on {dev}, "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+            n_edges = PDF_BINS if par_bins is None else par_bins.shape[1]
+            check_product_shapes(name, out["cuda"], n_lon, n_lat, fitter,
+                                 stack, n_edges)
+            check_product_gates(name, out["cuda"], batches, n_lon, n_lat,
+                                fitter.ncomp_max)
+            compare_products(name, out["cuda"], out["cpu"])
+            if par_bins is not None:
+                check_finite_pdfs(name, out["cuda"], tab)
+            del out
 
     # the synthetic cube's records as a map users work at
     stack, fitter, batches = cases["synth"]
@@ -1533,28 +1620,37 @@ def phase_products(cases, counters, keep=None):
           f"{post_gb:.2f} GB float32, n_post "
           f"{tab.runs[1]['posteriors'].shape[1]}", flush=True)
     runner = product_runner(stack, "cuda")
-    walls = {}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    prod = postprocess_table(tab, stack, runner, evid_kernel=PRODUCT_KERNEL,
-                             post_kernel=PRODUCT_KERNEL, device="cuda",
-                             walls=walls)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() - base
-    print(f"products tiled: chain wall {wall:.2f} s on the card; per step "
-          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
-          flush=True)
-    print(f"products tiled: host -> device {tab.h2d_bytes / 1e9:.3f} GB "
-          f"from the table; peak device memory {peak / 2**30:.3f} GiB above "
-          f"the {base / 2**30:.3f} GiB held before; card: "
-          f"{smi('name,power.limit')}", flush=True)
-    check_product_shapes("products tiled", prod, PRODUCT_SIDE, PRODUCT_SIDE,
-                         fitter, stack)
-    check_product_gates("products tiled", prod, tiled, PRODUCT_SIDE,
-                        PRODUCT_SIDE, fitter.ncomp_max)
+    card = smi("name,power.limit")
+    for tag, par_bins in (("", None), (" finite bins", PAR_BINS)):
+        name = f"products tiled{tag}"
+        walls, prod = {}, None
+        h2d = tab.h2d_bytes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        prod = postprocess_table(tab, stack, runner, par_bins=par_bins,
+                                 evid_kernel=PRODUCT_KERNEL,
+                                 post_kernel=PRODUCT_KERNEL, device="cuda",
+                                 walls=walls)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"{name}: chain wall {wall:.2f} s on the card; per step "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()),
+              flush=True)
+        print(f"{name}: host -> device {(tab.h2d_bytes - h2d) / 1e9:.3f} GB "
+              f"from the table; peak device memory {peak / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB held before; card: {card}",
+              flush=True)
+        n_edges = PDF_BINS if par_bins is None else par_bins.shape[1]
+        check_product_shapes(name, prod, PRODUCT_SIDE, PRODUCT_SIDE, fitter,
+                             stack, n_edges)
+        check_product_gates(name, prod, tiled, PRODUCT_SIDE, PRODUCT_SIDE,
+                            fitter.ncomp_max)
+        if par_bins is not None:
+            check_finite_pdfs(name, prod, tab)
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"products: kernel launches {json.dumps(launches)} (the path runs "
           "the plain model_predict, no hand-written kernel)", flush=True)
@@ -1850,11 +1946,31 @@ def mesh_varnoise(counters):
     return runs
 
 
-def mesh_transforms(seed):
-    """Phase *mesh* (e): the IRDC transform through K2/K3 on the card for
-    4,096 unit vectors at ncomp 2, against the native C++ engine's
-    transform (built at first use) and 256 of them against the scalar
-    oracle's placement."""
+def engine_gap(th, tc, ncomp, dist):
+    """The IRDC transform ``th`` against the engine's ``tc`` (both
+    ``[n, 6 * ncomp]``): ``(independent dims' max |diff|, on-grid
+    centroids' cells, off-grid centroid count, off-grid rows' share, the
+    off-grid centroids' max relative diff, whether both put the same
+    centroids off the grid)``."""
+    a, c = th.reshape(-1, 6, ncomp), tc.reshape(-1, 6, ncomp)
+    va, vc = a[:, 0], c[:, 0]
+    lo, hi = dist.xmin - dist.dx, dist.xmax + dist.dx
+    off = (vc < lo) | (vc > hi)
+    same = bool(np.array_equal(off, (va < lo) | (va > hi)))
+    rel = float((np.abs(va[off] - vc[off]) / np.abs(vc[off])).max()) \
+        if off.any() else 0.0
+    return (float(np.abs(a[:, 1:] - c[:, 1:]).max()),
+            np.abs(va[~off] - vc[~off]) / dist.dx, int(off.sum()),
+            float(off.any(1).mean()), rel, same)
+
+
+def mesh_transforms(seed, counters):
+    """Phase *mesh* (e): the IRDC transform on the card for 4,096 unit
+    vectors at ncomp 2, 3 and 4 -- K2/K3, and at ncomp 4 the dense
+    placement step before K3 -- against the native C++ engine's
+    transform (built at first use), and 256 of the ncomp-2 vectors
+    against the scalar oracle's placement.  Returns the transforms'
+    launches."""
     import torch
     from nestfit_tpu_torch import oracle
     from nestfit_tpu_torch.native import bindings
@@ -1866,47 +1982,69 @@ def mesh_transforms(seed):
     lib = bindings.build()
     t_build = time.perf_counter() - t0
     utrans = get_irdc_priors(vsys=0.0, device="cuda")
-    u = np.random.default_rng(seed + 50).uniform(size=(4096, 12))
-    u = u.astype(np.float32)
-    th = utrans.transform(torch.as_tensor(u, device="cuda"), 2)
-    th = th.double().cpu().numpy().reshape(-1, 6, 2)
-    tc = bindings.transform_native(utrans, 2, u.astype(np.float64))
-    tc = tc.reshape(-1, 6, 2)
-    dx = utrans.priors[0].vcen_prior.dist.dx
-    indep = np.abs(th[:, 1:] - tc[:, 1:]).max()
-    cells = np.abs(th[:, 0] - tc[:, 0]) / dx
     prior = utrans.priors[0]
     dist = prior.vcen_prior.dist
+    print(f"mesh transforms: native library {lib.name} ready in "
+          f"{t_build:.2f} s", flush=True)
+    us = {n: np.random.default_rng(seed + 50).uniform(
+        size=(4096, 6 * n)).astype(np.float32) for n in (2, 3, 4)}
+    for fn in counters.values():
+        fn.launches = 0
+    ths = {n: utrans.transform(torch.as_tensor(u, device="cuda"), n)
+           for n, u in us.items()}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if not launches["table_lerp"] or not launches["tapered_invert"]:
+        fail(f"mesh transforms: K2/K3 not launched ({launches})")
+    ok = True
+    for n, u in us.items():
+        th = ths[n].double().cpu().numpy()
+        t0 = time.perf_counter()
+        tc = bindings.transform_native(utrans, n, u.astype(np.float64))
+        t_engine = time.perf_counter() - t0
+        indep, cells, n_off, share, rel, same = engine_gap(th, tc, n, dist)
+        print(f"mesh transforms: ncomp {n}, 4096 vectors against the "
+              f"engine ({t_engine:.2f} s with its tables): independent dims "
+              f"max {indep:.3e} (atol {NATIVE_INDEP_ATOL:g}); on-grid "
+              f"centroids max {cells.max():.3f}, median "
+              f"{np.median(cells):.2e} cells (bars "
+              f"{NATIVE_VOFF_MAX_CELLS[n]:g}, {NATIVE_VOFF_MEDIAN_CELLS:g}); "
+              f"{n_off} centroids off the grid in both: {same}, max "
+              f"relative diff {rel:.2e} (bar {NATIVE_OFF_GRID_RTOL:g}), rows "
+              f"{100 * share:.2f}% (bar {100 * NATIVE_OFF_GRID_SHARE:g}%)",
+              flush=True)
+        ok &= (indep <= NATIVE_INDEP_ATOL
+               and cells.max() <= NATIVE_VOFF_MAX_CELLS[n]
+               and np.median(cells) <= NATIVE_VOFF_MEDIAN_CELLS and same
+               and rel <= NATIVE_OFF_GRID_RTOL
+               and share <= NATIVE_OFF_GRID_SHARE)
+    th = ths[2].double().cpu().numpy().reshape(-1, 6, 2)
     od = oracle.OracleDistribution(dist.xax.double().cpu().numpy(),
                                    dist.pdf.double().cpu().numpy())
     o_cells = max(np.abs(th[i, 0] - oracle.resolved_placement_interp(
-        od, u[i].reshape(6, 2)[0].astype(np.float64), th[i, 4],
-        prior.sep_scale)).max() for i in range(256)) / dx
-    print(f"mesh transforms: native library {lib.name} ready in "
-          f"{t_build:.2f} s; K2/K3 transform of 4096 vectors (ncomp 2) "
-          f"against the engine: independent dims max {indep:.3e} (atol "
-          f"{NATIVE_INDEP_ATOL:g}), centroids max {cells.max():.3f} and "
-          f"median {np.median(cells):.2e} grid cells (bars "
-          f"{NATIVE_VOFF_MAX_CELLS:g}, {NATIVE_VOFF_MEDIAN_CELLS:g}); 256 "
-          f"against the scalar oracle: max {o_cells:.3f} cells (bar "
-          f"{ORACLE_VOFF_CELLS:g})", flush=True)
-    if not (indep <= NATIVE_INDEP_ATOL and cells.max() <= NATIVE_VOFF_MAX_CELLS
-            and np.median(cells) <= NATIVE_VOFF_MEDIAN_CELLS
-            and o_cells <= ORACLE_VOFF_CELLS):
+        od, us[2][i].reshape(6, 2)[0].astype(np.float64), th[i, 4],
+        prior.sep_scale)).max() for i in range(256)) / dist.dx
+    print(f"mesh transforms: 256 ncomp-2 vectors against the scalar "
+          f"oracle: max {o_cells:.3f} cells (bar {ORACLE_VOFF_CELLS:g}); "
+          f"kernel launches {json.dumps(launches)}", flush=True)
+    if not ok or o_cells > ORACLE_VOFF_CELLS:
         fail("mesh transforms: the kernels' transform is off the "
              "independent ones")
+    return [launches]
 
 
 def phase_mesh(seed, counters, traced):
     """Multi-device and multi-process fitting, and the independent checks
     of item 15: (a) dp, (b) sp, (c) hosts, (d) varnoise, (e) the native
-    and oracle transforms.  Returns the launches of the fitting runs."""
+    and oracle transforms.  Returns the launches of the fitting runs and
+    of the transforms."""
     runs = []
     for part, fn in (("a dp", lambda: mesh_dp(seed, counters, traced)),
                      ("b sp", lambda: mesh_sp(seed, counters)),
                      ("c hosts", lambda: mesh_hosts(seed)),
                      ("d varnoise", lambda: mesh_varnoise(counters)),
-                     ("e transforms", lambda: mesh_transforms(seed))):
+                     ("e transforms", lambda: mesh_transforms(seed,
+                                                              counters))):
         t0 = time.perf_counter()
         runs += fn() or []
         print(f"phase mesh ({part}): {time.perf_counter() - t0:.1f} s",
@@ -2181,7 +2319,8 @@ def phase_plots(tiled, synth):
     """Phase *plots*: every ``StorePlotter`` data step from the store-free
     source (``RecordSource``), on the card and on the CPU, held against
     each other: the map steps on phase *products*' 65,536-px map
-    (``tiled``: its table, products and header), the per-pixel steps on
+    (``tiled``: its table, finite-bin products and header; the 3-D
+    volume must hold voxels), the per-pixel steps on
     phase *cube*'s case (b) records (``synth``: stack, fitter, batches);
     then the precision data in float64 against the oracle.  No figure is
     drawn here."""
@@ -2210,6 +2349,9 @@ def phase_plots(tiled, synth):
                       for k in MAP_STEPS)
           + f"; {n} voxels; card: {smi('name,power.limit')}", flush=True)
     _close_tree("plots map", out["cuda"], out["cpu"])
+    if n == 0:
+        fail("plots map: the 3-D volume of the finite-bin products holds no "
+             "voxel")
     nb = out["cuda"]["nbest"]["image"]
     if not np.isfinite(nb).all() or out["cuda"]["nbest"]["image"].shape \
             != (tab.n_lat, tab.n_lon):

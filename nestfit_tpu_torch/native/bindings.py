@@ -15,6 +15,7 @@ source raises.
 """
 
 import ctypes
+import ctypes.util
 import hashlib
 import os
 import shlex
@@ -219,9 +220,86 @@ def _tapered_invert(dist, u, x_lo, x_hi, s):
     return xax[i_hi_idx - 1] + (u - y_lo) * (np.float32(dist.dx) / denom)
 
 
+def _powf(x, y):
+    """``x ** y`` in float32 as XLA's CPU backend computes it: the C
+    library's ``powf``, which NumPy's and PyTorch's float32 powers miss
+    in the last place now and then.  Evaluated once per distinct ``x``."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.powf.restype = ctypes.c_float
+    libm.powf.argtypes = [ctypes.c_float, ctypes.c_float]
+    vals, inv = np.unique(x, return_inverse=True)
+    out = np.array([libm.powf(v, y) for v in vals.tolist()], np.float32)
+    return out[inv].reshape(x.shape)
+
+
+def _cumsum(x, base=16):
+    """Float32 cumulative sum along the last axis in the order of XLA's
+    CPU backend, which rewrites a long scan into blocks of ``base``:
+    each block is summed left to right, then the block totals are
+    scanned the same way and added to the next block."""
+    n = x.shape[-1]
+    if n <= base:
+        return np.cumsum(x, axis=-1, dtype=np.float32)
+    nb = -(-n // base)
+    xr = np.concatenate(
+        [x, np.zeros(x.shape[:-1] + (nb * base - n,), np.float32)], -1)
+    inner = np.cumsum(xr.reshape(x.shape[:-1] + (nb, base)), axis=-1,
+                      dtype=np.float32)
+    outer = _cumsum(inner[..., -1], base)
+    carry = np.concatenate(
+        [np.zeros(x.shape[:-1] + (1,), np.float32), outer[..., :-1]], -1)
+    return (inner + carry[..., None]).reshape(x.shape[:-1]
+                                              + (nb * base,))[..., :n]
+
+
+def _cdf_over_interval(dist, x_lo, x_hi, sfact):
+    """``cdf_over_interval`` of the JAX package: the dense tapered CDF
+    ``[n, N]`` over ``[x_lo, x_hi]`` (float32, ``x_lo``/``x_hi``
+    float64)."""
+    pdf = _f32(dist.pdf)
+    size = dist.size
+    lo = np.minimum(x_lo, x_hi)
+    hi = np.maximum(x_lo, x_hi)
+    with np.errstate(invalid="ignore"):    # NaN bounds cast as in XLA
+        i_lo = np.clip(((lo - dist.xmin) / dist.dx).astype(np.int32), 0,
+                       size - 1)
+        i_hi = ((hi - dist.xmin) / dist.dx).astype(np.int32)
+    i_hi = np.where(i_hi == i_lo, i_lo + 1, i_hi)
+    i_hi = np.clip(i_hi, 1, size)
+    idx = np.arange(size)
+    i_lo_b, i_hi_b = i_lo[:, None], i_hi[:, None]
+    span = np.maximum(i_hi_b - i_lo_b, 1).astype(np.float32)
+    t = (idx - i_lo_b).astype(np.float32) / span
+    taper = _powf(np.clip(np.float32(1.0) - t, np.float32(0.0),
+                          np.float32(1.0)), sfact)
+    trap = np.float32(0.5) * (pdf + np.roll(pdf, 1))
+    interior = (idx > i_lo_b) & (idx < i_hi_b)
+    terms = np.where(interior, trap * taper, np.float32(0.0))
+    csum = _cumsum(terms)
+    total = np.maximum(csum[:, -1:], np.float32(1e-30))
+    cdf = csum / total
+    cdf = np.where(idx < i_lo_b, np.float32(0.0), cdf)
+    cdf = np.where(idx >= i_hi_b, np.float32(1.0), cdf)
+    degenerate = (i_hi_b - i_lo_b) == 1
+    return np.where(degenerate & (idx >= i_lo_b), np.float32(1.0), cdf)
+
+
+def _cdf_interp(dist, cdf, u):
+    """``cdf_interp`` of the JAX package on a batched CDF ``[n, N]``."""
+    xax = _f32(dist.xax)
+    size = cdf.shape[-1]
+    u = np.maximum(u, np.float32(1e-30))
+    i_hi = np.clip(np.sum(cdf < u[:, None], axis=-1), 1, size - 1)
+    i_lo = i_hi - 1
+    rows = np.arange(cdf.shape[0])
+    y_lo, y_hi = cdf[rows, i_lo], cdf[rows, i_hi]
+    denom = np.maximum(y_hi - y_lo, np.float32(1e-30))
+    return xax[i_lo] + (u - y_lo) * (np.float32(dist.dx) / denom)
+
+
 def _apply_prior(prior, theta, ncomp):
     """One prior of the port's transformer on ``theta[n, n_param, ncomp]``
-    (float64)."""
+    (float64), in the float order of the JAX class's ``apply``."""
     from nestfit_tpu_torch.priors import priors as P
 
     if isinstance(prior, P.ConstantPrior):
@@ -230,6 +308,38 @@ def _apply_prior(prior, theta, ncomp):
         v = _ppf(prior.dist, theta[:, prior.p_ix, :])
         theta[:, prior.p_ix, :] = v
         theta[:, prior.p_ix_dup, :] = v
+    elif isinstance(prior, P.OrderedPrior):
+        u = theta[:, prior.p_ix, :].copy()
+        umin = np.zeros_like(u[:, 0])
+        for i in range(ncomp):
+            umin = umin + (1.0 - umin) * u[:, i]
+            theta[:, prior.p_ix, i] = _ppf(prior.dist, umin)
+    elif isinstance(prior, P.SpacedPrior):
+        u = theta[:, prior.p_ix, :].copy()
+        v = _ppf(prior.prior_indep.dist, u[:, 0])
+        theta[:, prior.p_ix, 0] = v
+        for i in range(1, ncomp):
+            v = v + _ppf(prior.prior_depen.dist, u[:, i])
+            theta[:, prior.p_ix, i] = v
+    elif isinstance(prior, P.CenSepPrior):    # and ResolvedCenSepPrior
+        if ncomp > 2:
+            raise NotImplementedError(
+                f"{type(prior).__name__} supports ncomp <= 2")
+        if isinstance(prior, P.ResolvedCenSepPrior):
+            _apply_prior(prior.sigm_prior, theta, ncomp)
+        ix = prior.p_ix
+        u = theta[:, ix, :].copy()
+        vcen = _ppf(prior.vcen_prior.dist, u[:, 0])
+        if ncomp == 1:
+            theta[:, ix, 0] = vcen
+            return
+        vsep = _ppf(prior.vsep_prior.dist, u[:, 1])
+        if isinstance(prior, P.ResolvedCenSepPrior):
+            sig = theta[:, prior.sigm_prior.p_ix, :]
+            vsep = np.maximum(vsep, prior.sep_scale
+                              * np.sqrt(sig[:, 0] * sig[:, 1]))
+        theta[:, ix, 0] = vcen - 0.5 * vsep
+        theta[:, ix, 1] = vcen + 0.5 * vsep
     elif isinstance(prior, P.ResolvedPlacementPrior):
         dist = prior.vcen_prior.dist
         _apply_prior(prior.sigm_prior, theta, ncomp)
@@ -253,10 +363,11 @@ def _apply_prior(prior, theta, ncomp):
             v_lo = v_lo + min_seps[:, i]
             v_hi = v_hi + min_seps[:, i]
             sfact = ncomp - 1 - i
-            if sfact > 2:
-                raise NotImplementedError(
-                    "PPF tables of a placement prior at ncomp > 3")
-            v = _tapered_invert(dist, u[:, i], v_lo, v_hi, sfact)
+            if sfact <= 2:
+                v = _tapered_invert(dist, u[:, i], v_lo, v_hi, sfact)
+            else:    # the dense form, reached only at ncomp >= 4
+                cdf = _cdf_over_interval(dist, v_lo, v_hi, sfact)
+                v = _cdf_interp(dist, cdf, u[:, i])
             theta[:, ix_v, i] = v
             v_lo = v
     elif type(prior) is P.Prior:

@@ -7,6 +7,8 @@ against the JAX store of the same cube and settings.
 Everything runs on ``device="cpu"`` (the kernels' plain versions) on the
 4x2 synthetic stack: 3 empty pixels, 4 one-component pixels, 1 NaN."""
 
+import json
+import os
 import subprocess
 import sys
 
@@ -27,7 +29,7 @@ from nestfit_tpu_torch.parallel import make_mesh
 from nestfit_tpu_torch.priors import get_irdc_priors
 from nestfit_tpu_torch.sampling import NSConfig, fit_single
 
-from _cube_inputs import N_LAT, SIGNAL, hdf_tree, synth_stack
+from _cube_inputs import DATA_DIR, N_LAT, SIGNAL, hdf_tree, synth_stack
 
 VALID = {(l, b) for l in range(4) for b in range(2)} - {(0, 1)}
 
@@ -263,8 +265,9 @@ def test_fit_cube_resume(stack, tmp_path):
         assert {5, 6, 7} <= done
 
 
-# the ladder smoke test's sizes, first passes only (the JAX package's
-# boundary refit at 2 x nlive = 300 > max_iter runs out of memory here)
+# the ladder smoke test's sizes, first passes only (the refit rows are held
+# by test_fit_cube_refit_store_matches_jax_fixture against a recorded JAX
+# store: a live JAX boundary pass spends about a minute compiling)
 LADDER = dict(ncomp_max=2, ns_kwargs={"nlive": 16, "tol": 5.0, "max_iter": 300},
               n_post=16, segment_iters=64, mode_loss_retries=0,
               boundary_band=0)
@@ -293,6 +296,48 @@ def test_fit_cube_store_matches_jax_store(stack, tmp_path):
         t = hdf_tree(f"{tname}.store/{name}", values=False)
         j = hdf_tree(f"{jname}.store/{name}", values=False)
         assert t == j, name
+
+
+REFIT_FIXTURE = os.path.join(DATA_DIR, "torch_refit_store.json")
+
+
+def test_fit_cube_refit_store_matches_jax_fixture(stack, tmp_path):
+    """Every row re-fitted in the boundary pass and merged into its batch
+    (``boundary_band=1e9``), on the port, against the JAX store that
+    ``tools/make_refit_fixture.py`` recorded at the same settings: the
+    same files, groups, attribute names, dtypes and dataset shapes;
+    ``nbest`` >= 1 on signal pixels and 0 on empty ones; and on every
+    row the merged refit's ``n_calls``, equal to the JAX row's and
+    unlike the first pass's (``boundary_band=0``)."""
+    with open(REFIT_FIXTURE) as fh:
+        rec = json.load(fh)
+    kw = dict(rec["settings"])
+    assert (kw.pop("batch_size"), kw.pop("nlive_buckets")) == (8, 1)
+    runs = {}
+    for label, band in (("refit", kw["boundary_band"]), ("first", 0)):
+        name = str(tmp_path / label)
+        _fitter(stack, **dict(kw, boundary_band=band)).fit_cube(
+            store_name=name, seed=rec["seed"])
+        runs[label] = _store_groups(name)
+    got, first = runs["refit"], runs["first"]
+    want = {tuple(int(i) for i in k.split(",")):
+            (nb, {int(n): tuple(v) for n, v in rungs.items()})
+            for k, (nb, rungs) in rec["groups"].items()}
+    assert set(got) == set(want) == VALID
+    for k in VALID:
+        nb_t, nb_j = got[k][0], want[k][0]
+        if k in SIGNAL:
+            assert nb_t >= 1 and nb_j >= 1, (k, got[k], want[k])
+            assert sorted(got[k][1]) == sorted(want[k][1]) == [1, 2]
+        else:
+            assert nb_t == nb_j == 0, (k, got[k], want[k])
+        for n, (_lnz, calls) in want[k][1].items():
+            assert np.isfinite(got[k][1][n][0])
+            assert got[k][1][n][1] == calls, (k, n, got[k], want[k])
+            assert calls != first[k][1].get(n, (None, None))[1], (k, n)
+    for name in ("table.hdf", "chunk0.hdf"):
+        tree = hdf_tree(f"{tmp_path / 'refit'}.store/{name}", values=False)
+        assert json.loads(json.dumps(tree)) == rec["trees"][name], name
 
 
 def test_seed_replays_the_run(stack):

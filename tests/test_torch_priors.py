@@ -29,6 +29,10 @@ from nestfit_tpu_torch.priors import (
     tapered_interval_invert,
 )
 
+from _prior_pairs import PRIOR_KINDS
+from _prior_pairs import grid as _grid
+from _prior_pairs import prior_pair as _prior_pair
+
 TABLES = ("xax", "pdf", "cdf", "ppf", "t0", "t1c", "t2c")
 
 
@@ -37,11 +41,6 @@ def _interpret(monkeypatch):
     monkeypatch.setattr(jax_tables, "INTERPRET", True)
     monkeypatch.setattr(jax_dists, "USE_PALLAS_TABLES", False)
     torch.set_num_threads(2)
-
-
-def _grid():
-    x = np.linspace(-4, 4, 500)
-    return x, np.exp(-0.5 * (x / 1.7) ** 2) + 0.05
 
 
 def _dists():
@@ -114,37 +113,6 @@ def test_irdc_transform_matches_jax(ncomp):
     assert pt.flat_dims(ncomp) == jax_priors().flat_dims(ncomp)
 
 
-def _prior_pair(kind):
-    """The same prior built in both packages over three grids: a centred
-    Gaussian bump, positive offsets and widths."""
-    x_sep = np.linspace(0.1, 2.6, 300)
-    x_sig = np.linspace(0.05, 2.0, 300)
-    grids = [_grid(), (x_sep, np.ones_like(x_sep)), (x_sig, np.exp(-x_sig))]
-
-    def build(m, mk):
-        d = [mk(x, f) for x, f in grids]
-        return {
-            "duplicate": lambda: [m.DuplicatePrior(d[0], 0, 1)],
-            "ordered": lambda: [m.OrderedPrior(d[0], 0), m.Prior(d[2], 1)],
-            "spaced": lambda: [m.SpacedPrior(m.Prior(d[0], 0),
-                                             m.Prior(d[1], 0)),
-                               m.Prior(d[2], 1)],
-            "censep": lambda: [m.CenSepPrior(m.Prior(d[0], 0),
-                                             m.Prior(d[1], 0)),
-                               m.Prior(d[2], 1)],
-            "resolved_censep": lambda: [m.ResolvedCenSepPrior(
-                m.Prior(d[0], 0), m.Prior(d[1], 0), m.Prior(d[2], 1),
-                scale=1.2)],
-        }[kind]()
-
-    return (jax_pr.PriorTransformer(build(jax_pr, lambda x, f:
-                                          jax_dists.make_distribution(
-                                              x, f, dtype=jnp.float32))),
-            pr.PriorTransformer(build(pr, lambda x, f: make_distribution(
-                x, f, device="cpu"))))
-
-
-PRIOR_KINDS = ["duplicate", "ordered", "spaced", "censep", "resolved_censep"]
 
 
 @pytest.mark.parametrize("ncomp", [1, 2])
