@@ -145,7 +145,14 @@ Phases, in order; any failure exits non-zero:
                step's wall printed; the float64 ``amm_predict`` on the card
                within rtol 1e-8, atol 1e-5 of the oracle.  No figure is
                drawn: the card's machine has no matplotlib.
-14. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
+14. bench    -- ``bench_torch.py --fast`` (128 px) in a process of its
+               own, segmented, one timed seed (``BENCH_TIMED_SEEDS=5``) and
+               one engine-baseline pixel (``BENCH_CPU_PIXELS=1``): exit code
+               0, its JSON line carrying every key of the bench's contract
+               and the card, the selection and engine-agreement gates
+               passed, K1-K3 launched on the timed ladder (added to the
+               launch counts below).  The run's wall and rate are printed.
+15. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
 
@@ -158,6 +165,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -217,6 +225,12 @@ HOST_TIMEOUT = 600       # phase mesh (c): each worker process, seconds
 AOT_TIMEOUT = 600        # phase aot: each worker process, seconds
 AOT_STALE_PIXELS = 512   # phase aot: the stale plan's batch
 DRAWS = 30               # phase plots: spec_fit_draws' posterior draws
+BENCH_TIMEOUT = 300      # phase bench: the bench process, seconds
+# phase bench: the keys of bench_torch.py's JSON line
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "timed_clean",
+              "warmup_s", "precompile", "evals_per_pixel", "gates", "mode",
+              "segment_iters", "seeds", "card", "peak_mem_gib", "launches",
+              "traced")
 WALLS = {}               # rung label -> wall seconds (run_rung)
 REPLAYED = {}            # rung label -> launches by graph replays (run_rung)
 
@@ -2407,6 +2421,55 @@ def phase_plots(tiled, synth):
     tmp.cleanup()
 
 
+def phase_bench():
+    """Phase *bench*: ``bench_torch.py --fast`` in a process of its own
+    (segmented, one timed seed, one engine-baseline pixel).  Fails unless
+    it exits 0 with a JSON line that holds every key, the card, passed
+    selection and engine gates and K1-K3 launches on the timed ladder.
+    Returns those launches."""
+    env = dict(os.environ, BENCH_TIMED_SEEDS="5", BENCH_CPU_PIXELS="1",
+               BENCH_SEGMENT_ITERS="250")
+    script = Path(__file__).resolve().parent / "bench_torch.py"
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, str(script), "--fast"],
+                             env=env, capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"bench: bench_torch.py ran past {BENCH_TIMEOUT} s")
+    wall = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        if line.startswith("bench:") and any(
+                w in line for w in ("timed seed", "gate", "baseline",
+                                    "precompile", "FAIL")):
+            print(f"  {line}", flush=True)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        print(out.stderr[-3000:], flush=True)
+        fail(f"bench: bench_torch.py exited {out.returncode}")
+    res = json.loads(lines[-1])
+    missing = [k for k in BENCH_KEYS if k not in res]
+    if missing or "error" in res or "deadline_hit" in res:
+        fail(f"bench: the JSON line lacks {missing} or holds an error: "
+             f"{lines[-1][:2000]}")
+    gates = res["gates"]["pass"]
+    if not (gates["selection"] and gates["engine"]) or not res["card"]:
+        fail(f"bench: gates {gates}, card {res['card']!r}")
+    launches = {k: sum(r[k] for r in res["launches"])
+                for k in ("hf_chi2_fused", "table_lerp", "tapered_invert")}
+    if min(launches.values()) <= 0 or len(res["seeds"]) != 1:
+        fail(f"bench: launches {launches}, {len(res['seeds'])} timed seeds")
+    sd = res["seeds"][0]
+    print(f"bench: process wall {wall:.1f} s; {res['value']} "
+          f"{res['unit']} (vs_baseline {res['vs_baseline']}), timed ladder "
+          f"{sd['wall_s']:.2f} s (rungs {sd['rung_s']}, second pass "
+          f"{sd['second_pass_s']:.2f} s), evals/px {res['evals_per_pixel']}, "
+          f"gates {gates}, native truth "
+          f"{res['gates'].get('native400', 'compared')}, launches "
+          f"{json.dumps(launches)}; card {res['card']}", flush=True)
+    return [dict(launches, gauss_chi2_fused=0)]
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler`` in each sampler mode (its
     ``segment_iters``): device time by kernel and the device's busy
@@ -2542,6 +2605,10 @@ def main():
     phase_plots(plots_in["tiled"], plots_in["synth"])
     del plots_in
     print(f"phase plots: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs += phase_bench()
+    print(f"phase bench: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
