@@ -155,6 +155,16 @@ Phases, in order; any failure exits non-zero:
 15. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
+16. validation -- the port's evidence-validation suite
+               (``validation_torch/``) on the native-truth artifact's first
+               16 pixels, padded to 32 rows: ``agreement.run_agreement`` at
+               nlive 100, one seed, traced, then ``outlier_postmortem
+               .classify`` against the engine's nlive-400 truth.  Every lnZ
+               finite, >= 98% of the runs converged and a run that did not
+               spent its death budget, K1-K3 launched (added to the launch
+               counts below), the |dz|/sigma median under ``bench_torch.py``'s
+               bar of 4.  Prints the wall, and the count and class of the
+               records beyond 10 sigma.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -226,6 +236,7 @@ AOT_TIMEOUT = 600        # phase aot: each worker process, seconds
 AOT_STALE_PIXELS = 512   # phase aot: the stale plan's batch
 DRAWS = 30               # phase plots: spec_fit_draws' posterior draws
 BENCH_TIMEOUT = 300      # phase bench: the bench process, seconds
+VALIDATION_PIXELS, VALIDATION_ROWS = 16, 32   # phase validation
 # phase bench: the keys of bench_torch.py's JSON line
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "timed_clean",
               "warmup_s", "precompile", "evals_per_pixel", "gates", "mode",
@@ -2470,6 +2481,67 @@ def phase_bench():
     return [dict(launches, gauss_chi2_fused=0)]
 
 
+def phase_validation(counters):
+    """Phase *validation*: the agreement run of ``validation_torch/`` on the
+    artifact's first ``VALIDATION_PIXELS`` pixels (padded to
+    ``VALIDATION_ROWS`` rows; nlive 100, seed 0, traced), classified against
+    the native truth.  Fails on a non-finite lnZ, fewer than 98% converged
+    runs or a stalled one, a K1-K3 counter that did not rise, or a
+    |dz|/sigma median at or above ``bench_torch.NT_DZ_MEDIAN``.  Returns
+    the launches."""
+    import torch
+    from bench_torch import NT_DZ_MEDIAN
+    from validation_torch import agreement
+    from validation_torch import outlier_postmortem as pm
+
+    with open(agreement.NATIVE) as fh:
+        nat = json.load(fh)
+    pixels = sorted(int(k) for k in nat["records"])[:VALIDATION_PIXELS]
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec, _ = agreement.run_agreement(None, "traced", [(100, 0)],
+                                     VALIDATION_ROWS, "cuda", pixels=pixels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: int(fn.launches) for k, fn in counters.items()}
+    run, stats = rec["runs"]["nlive100/seed0"], \
+        rec["run_stats"]["nlive100/seed0"]
+    if sorted(map(int, run)) != pixels:
+        fail(f"validation: records of {sorted(run)}, not of {pixels}")
+    z = np.array([[d[f"lnz{n}"], d[f"lnz{n}_err"]] for d in run.values()
+                  for n in (1, 2)])
+    if not np.isfinite(z).all():
+        fail("validation: non-finite lnZ")
+    n_runs = 2 * len(pixels)
+    n_conv = sum(stats[n]["converged"] for n in ("1", "2"))
+    n_short = sum(stats[n]["short_of_budget"] for n in ("1", "2"))
+    if n_conv < CONVERGED_SHARE * n_runs or n_short:
+        fail(f"validation: {n_runs - n_conv} of {n_runs} runs not converged "
+             f"({n_short} short of the death budget)")
+    for k in ("hf_chi2_fused", "table_lerp", "tapered_invert"):
+        if launches[k] <= 0:
+            fail(f"validation: kernel {k} never launched")
+    rows, outliers, _ = pm.classify(nat, rec, "gpu")
+    med = float(np.median([abs(r["dz_sigma"]) for r in rows]))
+    print(f"validation: wall {wall:.2f} s ({len(pixels)} px in "
+          f"{VALIDATION_ROWS} rows, nlive 100, traced; rung walls "
+          f"{stats['1']['wall_s']:.2f} / {stats['2']['wall_s']:.2f} s, "
+          f"evals/px {stats['1']['evals_per_px']:.0f} / "
+          f"{stats['2']['evals_per_px']:.0f}), converged {n_conv}/{n_runs}; "
+          f"native truth |dz|/sigma median {med:.3f} over {len(rows)} "
+          f"records (bar {NT_DZ_MEDIAN}), {len(outliers)} beyond "
+          f"{pm.OUTLIER_SIGMA:.0f} sigma: "
+          + (", ".join(f"pixel {r['pixel']} rung {r['rung']} "
+                       f"{r['dz_sigma']:+.1f} {r['class']}"
+                       for r in outliers) or "none")
+          + f"; kernels {json.dumps(launches)}", flush=True)
+    if not med < NT_DZ_MEDIAN:
+        fail(f"validation: |dz|/sigma median {med:.3f} >= {NT_DZ_MEDIAN}")
+    return launches
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler`` in each sampler mode (its
     ``segment_iters``): device time by kernel and the device's busy
@@ -2611,6 +2683,9 @@ def main():
     print(f"phase bench: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile:
         phase_profile(args.seed, args.pixels, args.profile)
+    t0 = time.perf_counter()
+    runs.append(phase_validation(counters))
+    print(f"phase validation: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "build", flush=True)
 
