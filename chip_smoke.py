@@ -165,6 +165,18 @@ Phases, in order; any failure exits non-zero:
                counts below), the |dz|/sigma median under ``bench_torch.py``'s
                bar of 4.  Prints the wall, and the count and class of the
                records beyond 10 sigma.
+17. probes  -- the sampler's progress lines and the probes of
+               ``validation_torch/``, each with the kernels' launch
+               counters at 0 before it and K1-K3 risen after it: (a) a
+               segmented NH3 rung 2 on 128 px of the bench cube with
+               ``NESTFIT_NS_DEBUG``'s lines on (``sampler._NS_DEBUG``), every
+               line of one of the JAX package's four kinds, and its lnZ
+               within 1e-5 relative of the same run with the lines off (the
+               largest difference printed); (b) ``mode_loss_probe`` at
+               ``lhs,iid``, one seed, 128 px, traced; (c) one
+               ``iter_cost_sweep`` ladder at ``50,2`` (``kill_k`` 50, slice
+               cadence 2), 128 px, traced.  Fails on a non-finite lnZ.
+               Prints the phase's wall.
 
 The line before last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -237,6 +249,8 @@ AOT_STALE_PIXELS = 512   # phase aot: the stale plan's batch
 DRAWS = 30               # phase plots: spec_fit_draws' posterior draws
 BENCH_TIMEOUT = 300      # phase bench: the bench process, seconds
 VALIDATION_PIXELS, VALIDATION_ROWS = 16, 32   # phase validation
+PROBE_PIXELS = 128       # phase probes: the revival probe's width
+PROBE_LNZ_RTOL = 1e-5    # phase probes (a): progress lines on against off
 # phase bench: the keys of bench_torch.py's JSON line
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "timed_clean",
               "warmup_s", "precompile", "evals_per_pixel", "gates", "mode",
@@ -2542,6 +2556,104 @@ def phase_validation(counters):
     return launches
 
 
+def phase_probes(counters):
+    """Phase *probes*: (a) the progress lines on a segmented NH3 rung 2 of
+    ``PROBE_PIXELS`` px against the same rung without them, (b)
+    ``mode_loss_probe`` at ``lhs,iid`` and (c) one ``iter_cost_sweep``
+    ladder at ``50,2``, both traced at ``PROBE_PIXELS`` px.  Fails on a
+    line of no kind, an lnZ off by more than ``PROBE_LNZ_RTOL`` relative,
+    a non-finite lnZ or a K1-K3 counter that did not rise.  Returns the
+    launches of the three."""
+    import torch
+    import bench_torch
+    from nestfit_tpu_torch.priors import get_irdc_priors
+    from nestfit_tpu_torch.sampling import NSConfig, fit_batch
+    from validation_torch import iter_cost_sweep, mode_loss_probe
+    from validation_torch import regime_probes
+
+    total = dict.fromkeys(counters, 0)
+
+    def counted(label, run):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: int(fn.launches) for k, fn in counters.items()}
+        for k in ("hf_chi2_fused", "table_lerp", "tapered_invert"):
+            if launches[k] <= 0:
+                fail(f"probes {label}: kernel {k} never launched")
+        for k in total:
+            total[k] += launches[k]
+        return out, wall, launches
+
+    # (a) the progress lines change no result
+    runner = bench_torch.make_runner(
+        bench_torch.make_cube(1024, 5), 2,
+        get_irdc_priors(vsys=0.0, device="cuda"), "cuda", rows=PROBE_PIXELS)
+    cfg = NSConfig(nlive=100, tol=1.0)
+
+    def rung():
+        gen = torch.Generator(device="cuda").manual_seed(
+            10 * regime_probes.REVIVAL_KEY + 2)
+        return fit_batch(gen, runner, PROBE_PIXELS, cfg, segment_iters=250,
+                         device="cuda")
+
+    off, wall_off, _ = counted("(a) lines off", rung)
+    (on, lines), wall_on, launches = counted(
+        "(a) lines on", lambda: regime_probes.debug_lines(rung))
+    try:
+        kinds = regime_probes.parse_lines(lines)
+    except ValueError as exc:
+        fail(f"probes (a): {exc}")
+    z_off, z_on = off.lnz.cpu().numpy(), on.lnz.cpu().numpy()
+    if not (np.isfinite(z_off).all() and np.isfinite(z_on).all()):
+        fail("probes (a): non-finite lnZ")
+    rel = float(np.max(np.abs(z_on - z_off) / np.abs(z_off)))
+    print(f"probes (a): segmented rung 2, {PROBE_PIXELS} px: lines off "
+          f"{wall_off:.2f} s, on {wall_on:.2f} s; lines by kind "
+          f"{json.dumps({k: len(v) for k, v in kinds.items()})}; largest "
+          f"relative lnZ difference {rel:.3e} (bar {PROBE_LNZ_RTOL}); "
+          f"kernels {json.dumps(launches)}", flush=True)
+    if not kinds["cand_seg"] or not kinds["slice_seg"]:
+        fail("probes (a): no candidate or no slice segment line")
+    if rel > PROBE_LNZ_RTOL:
+        fail(f"probes (a): lnZ moved by {rel:.3e} relative with the lines "
+             "on")
+
+    # (b) the mode-loss probe, traced
+    probe_runners = mode_loss_probe.make_runners(PROBE_PIXELS, "cuda")
+    recs, wall, launches = counted("(b)", lambda: [
+        mode_loss_probe.probe_pair(probe_runners, PROBE_PIXELS, tag, 0,
+                                   "traced", "cuda")
+        for tag in ("lhs", "iid")])
+    print(f"probes (b): mode_loss_probe lhs,iid, 1 seed, {PROBE_PIXELS} px, "
+          f"traced: {wall:.2f} s; "
+          + "; ".join(f"{r['variant']} viol1={r['viol1']} "
+                      f"viol2={r['viol2']} evals/px={r['evals_px']:.0f}"
+                      for r in recs)
+          + f"; kernels {json.dumps(launches)}", flush=True)
+    for r in recs:
+        if not r["lnz_finite"]:
+            fail(f"probes (b): {r['variant']}: non-finite lnZ")
+
+    # (c) one sweep ladder at kill_k 50, cadence 2, traced
+    rec, wall, launches = counted("(c)", lambda: next(iter_cost_sweep.sweep(
+        iter_cost_sweep.parse_combos(["50,2"]), "traced", "cuda",
+        n_pix=PROBE_PIXELS, timed=False)))
+    warm = rec["warm"]
+    print(f"probes (c): sweep ladder {rec['combo']}, {PROBE_PIXELS} px, "
+          f"traced: {wall:.2f} s; rung walls {warm[1]['wall_s']} / "
+          f"{warm[2]['wall_s']} s, evals/px {warm[1]['evals_px']:.0f} / "
+          f"{warm[2]['evals_px']:.0f}, nbest {warm['nbest_hist']}; kernels "
+          f"{json.dumps(launches)}", flush=True)
+    if not all(np.isfinite(warm[n]["lnz_mean"]) for n in (1, 2)):
+        fail("probes (c): non-finite lnZ")
+    return total
+
+
 def phase_profile(seed, n_pix, ncomp):
     """One rung under ``torch.profiler`` in each sampler mode (its
     ``segment_iters``): device time by kernel and the device's busy
@@ -2686,6 +2798,9 @@ def main():
     t0 = time.perf_counter()
     runs.append(phase_validation(counters))
     print(f"phase validation: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs.append(phase_probes(counters))
+    print(f"phase probes: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           "build", flush=True)
 

@@ -46,13 +46,19 @@ What differs from the JAX package, by design:
 
 import dataclasses
 import math
+import os
 import threading
+import time
 from typing import Callable
 
 import numpy as np
 import torch
 
 _NEG = -1e30  # sentinel for log-zero; avoids inf-inf NaNs in f32
+
+#: the segmented host loop's progress lines (MultiNest's ``fb`` feedback),
+#: read once at import as in the JAX package; the traced mode prints none
+_NS_DEBUG = bool(os.environ.get("NESTFIT_NS_DEBUG"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1379,9 +1385,21 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
             if probation:
                 step = min(step, 4)
             cand_sizes.add(r_cur)
+            if _NS_DEBUG:
+                t0 = _debug_clock(state)
             state = ns_segment(state, loglike2, cur_data, cfg,
                                min(i + step, iter_cap))
+            if _NS_DEBUG:
+                print(f"ns-debug: cand seg i={i}->{state.i} R={r_cur} "
+                      f"wall={_debug_clock(state) - t0:.2f}s "
+                      f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
             if auto and len(state.bounds) == 7:
+                if _NS_DEBUG:
+                    in_cube = float(state.bounds[5].float().mean())
+                    print(f"ns-debug: i={state.i} mode=cand "
+                          f"acc_ema={float(state.acc_ema):.4f} "
+                          f"in_cube={in_cube:.2f} "
+                          f"done={int(state.done.sum())}", flush=True)
                 # one-way switch once the union stops paying
                 i_floor = max(2 * cfg.bound_every, 8)
                 if state.i >= i_floor and float(state.acc_ema) < acc_thresh:
@@ -1393,6 +1411,10 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
         else:
             if auto_back and i >= probe_at:
                 state, est = ns_rebuild_bounds(state, cfg)
+                if _NS_DEBUG:
+                    print(f"ns-debug: probe i={i} R={r_cur} "
+                          f"est={float(est):.4f} thresh={acc_thresh:.4f} "
+                          f"cand_ready={r_cur in cand_sizes}", flush=True)
                 if r_cur in cand_sizes and float(est) > (
                         cfg.switch_back_margin * acc_thresh):
                     # prime the EMA to exactly the break-even threshold;
@@ -1408,12 +1430,32 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
             # short slice segments while compaction can still fire
             step_s = min(segment_iters, 64) if r_cur > cfg.min_compact \
                 else segment_iters
+            if _NS_DEBUG:
+                t0 = _debug_clock(state)
             state = ns_segment_slice(state, loglike2, cur_data, cfg,
                                      min(i + step_s, iter_cap))
+            if _NS_DEBUG:
+                print(f"ns-debug: slice seg i={i}->{state.i} R={r_cur} "
+                      f"wall={_debug_clock(state) - t0:.2f}s "
+                      f"done={int(state.done.sum())} "
+                      f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
 
     if acc is not None:
         state = _scatter_state(acc, state, orig_idx)
     return ns_finalize(_strip_bounds(state), cfg)
+
+
+def _debug_clock(state):
+    """The host clock once the state's device is idle (progress lines)."""
+    if state.u.device.type == "cuda":
+        torch.cuda.synchronize(state.u.device)
+    return time.perf_counter()
+
+
+def _ncall_mean(state):
+    """Mean likelihood calls per row, as the JAX package's progress lines
+    take it (NumPy's mean of the int32 counts)."""
+    return state.ncall.cpu().numpy().mean()
 
 
 def _gather_data(data, idx, n_rows):

@@ -1,6 +1,8 @@
 """The port's evidence-validation suite (``validation_torch/``) on the CPU.
 
-(a) It imports neither JAX, ``nestfit_tpu`` nor ``validation/``.
+(a) It imports neither JAX, ``nestfit_tpu`` nor ``validation/`` (the four
+    probe modules included: ``mode_loss_probe``, ``iter_cost_sweep``,
+    ``regime_probes``, ``compute_native_truth``).
 (b) On the committed TPU record (``validation/tpu_agreement_seed5.json``)
     its postmortem and selection cross-tab give the JAX scripts' rows,
     classes, cross-tab and markdown.  The JAX scripts import only NumPy:
@@ -91,7 +93,8 @@ def test_validation_torch_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.glob("*.py"))
     assert {f.name for f in files} >= {
         "agreement.py", "outlier_postmortem.py", "selection_sharpness.py",
-        "mode_loss_pixels.py"}
+        "mode_loss_pixels.py", "mode_loss_probe.py", "iter_cost_sweep.py",
+        "regime_probes.py", "compute_native_truth.py"}
     for f in files:
         names = []
         for node in ast.walk(ast.parse(f.read_text())):
@@ -107,10 +110,16 @@ def test_validation_torch_imports_neither_jax_nor_the_jax_package():
         "from validation_torch import agreement, mode_loss_pixels",
         "from validation_torch import outlier_postmortem, "
         "selection_sharpness",
+        "from validation_torch import mode_loss_probe, iter_cost_sweep, "
+        "regime_probes, compute_native_truth",
         "import nestfit_tpu_torch.sampling",
         f"art = json.load(open({str(NATIVE)!r}))",
         "agreement.make_runners(art, [0, 1], 4, 'cpu')",
         "mode_loss_pixels.native_lnz2([17])",
+        "mode_loss_probe.make_runners(4, 'cpu')",
+        "iter_cost_sweep.combo_config(iter_cost_sweep.parse_combos([])[0])",
+        "regime_probes.fixture_batch(4)",
+        "compute_native_truth.Truth('unused.json', 'cpu')",
         "bad = sorted(m for m in sys.modules if m == 'jax'"
         " or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'nestfit_tpu' or m.startswith('nestfit_tpu.')"
