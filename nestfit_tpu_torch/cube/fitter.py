@@ -27,7 +27,6 @@ seed stream and its own ``chunk_h<process>_<j>.hdf`` files
 
 import dataclasses
 import logging
-import time
 from pathlib import Path
 
 import numpy as np
@@ -40,6 +39,8 @@ from nestfit_tpu_torch.sampling.fit import align_fit_meta, fit_batch, \
     merge_fit_rows
 from nestfit_tpu_torch.sampling.results import resolve_n_post
 from nestfit_tpu_torch.sampling.sampler import NSConfig
+from nestfit_tpu_torch.utils.profiling import collect, now_ns, span, \
+    to_host
 
 log = logging.getLogger("nestfit_tpu_torch.fitter")
 
@@ -65,7 +66,12 @@ class BatchRecords:
     keeps (``records.fit_group_record`` form); ``rungs`` one dict of
     measurements per rung (wall, evals per pixel, retry and boundary
     rows); ``attempts`` the ladder runs the batch took (more than 1 when
-    a run raised and the batch was re-run with fresh seeds)."""
+    a run raised and the batch was re-run with fresh seeds); ``trace``
+    the ``utils.profiling.Trace`` of the batch: the spans, counters and
+    host reads of the ladder, the fits and the sampler.  The walls of
+    ``rungs`` are the lengths of its spans ``cube.first_pass`` (``wall``),
+    ``cube.rung`` (``total_wall``), ``cube.mode_loss_retry`` and
+    ``cube.boundary``."""
 
     chunk: int                  # index of the batch (its chunk file)
     nlive: int                  # the batch's SNR-bucket live-point level
@@ -74,6 +80,7 @@ class BatchRecords:
     records: list
     rungs: list
     attempts: int = 1
+    trace: object = None
 
 
 def _generator(ss, device):
@@ -107,6 +114,25 @@ def host_share(pixel_ix, seed, pi=0, pc=1):
         return pixel_ix, np.random.SeedSequence(seed)
     shard_ix = pixel_ix[distributed.host_pixel_stripe(pixel_ix.size, pi, pc)]
     return shard_ix, np.random.SeedSequence(seed).spawn(pc)[pi]
+
+
+def _log_batch(chunk, tr):
+    """Log a batch's trace: its wall, the sampler's counters and the
+    host reads by layer (count, seconds waited)."""
+    reads = {}
+    for site, (c, w) in tr.syncs.items():
+        layer = site.split(".")[0]
+        c0, w0 = reads.get(layer, (0, 0))
+        reads[layer] = (c0 + c, w0 + w)
+    wall = sum((t1 - t0) / 1e9 for _n, t0, t1, depth, _a in tr.spans
+               if depth == 0)
+    n = tr.counters
+    log.info("batch %d: %.1fs, %d iterations in %d segments (%d blocks, "
+             "%d compactions), host reads %s", chunk, wall,
+             n.get("ns.iterations", 0), n.get("ns.segments", 0),
+             n.get("ns.blocks", 0), n.get("ns.compactions", 0),
+             ", ".join(f"{k} {c} ({w / 1e9:.2f}s)"
+                       for k, (c, w) in sorted(reads.items())))
 
 
 class CubeFitter:
@@ -269,23 +295,27 @@ class CubeFitter:
                 attempt + 1, bad.size, n, ncomp, self.mode_loss_margin,
                 " (escalated nlive)" if attempt else "",
             )
-            t0 = time.perf_counter()
-            fit_r, r_r = self._fit_rows(a_ss, cur_ix[bad], ncomp, cfg_a,
-                                        datas, noises)
-            lnz_r = fit_r.lnz[: bad.size].cpu().numpy()
-            better = lnz_r > lnz[bad]
-            dst = bad[better]
-            old_lnz = lnz[dst]
-            if better.any():
-                fit = merge_fit_rows(fit, align_fit_meta(fit_r, fit), dst,
-                                     np.flatnonzero(better), r_pad, r_r)
-                lnz = lnz.copy()
-                lnz[dst] = lnz_r[better]
+            r_r = self._pad_quantum(bad.size)
+            with span("cube.mode_loss_retry", attempt=attempt + 1,
+                      rows=int(bad.size), r_pad=r_r,
+                      nlive=cfg_a.nlive) as sp:
+                fit_r, r_r = self._fit_rows(a_ss, cur_ix[bad], ncomp, cfg_a,
+                                            datas, noises)
+                lnz_r = to_host(fit_r.lnz[: bad.size], "cube.lnz")
+                better = lnz_r > lnz[bad]
+                dst = bad[better]
+                old_lnz = lnz[dst]
+                if better.any():
+                    with span("cube.merge"):
+                        fit = merge_fit_rows(fit, align_fit_meta(fit_r, fit),
+                                             dst, np.flatnonzero(better),
+                                             r_pad, r_r)
+                    lnz = lnz.copy()
+                    lnz[dst] = lnz_r[better]
             attempts.append(dict(
                 attempt=attempt + 1, nlive=cfg_a.nlive, rows=int(bad.size),
                 r_pad=r_r, replaced=int(better.sum()), pixels=cur_ix[dst],
-                lnz=lnz_r[better], old_lnz=old_lnz,
-                wall=time.perf_counter() - t0))
+                lnz=lnz_r[better], old_lnz=old_lnz, wall=sp.seconds))
         still = int((lnz < floor).sum())
         if stats is not None:
             stats["bad_after"] = still
@@ -319,19 +349,22 @@ class CubeFitter:
             band.size, cur_ix.size, ncomp, self.boundary_band,
             self.lnZ_thresh, cfg_b.nlive,
         )
-        t0 = time.perf_counter()
-        fit_b, r_b = self._fit_rows(ss, cur_ix[band], ncomp, cfg_b, datas,
-                                    noises)
-        lnz_b = fit_b.lnz[: band.size].cpu().numpy()
-        fit = merge_fit_rows(fit, align_fit_meta(fit_b, fit), band,
-                             np.arange(band.size), r_pad, r_b)
-        lnz = lnz.copy()
-        lnz[band] = lnz_b
+        with span("cube.boundary", rows=int(band.size),
+                  r_pad=self._pad_quantum(band.size),
+                  nlive=cfg_b.nlive) as sp:
+            fit_b, r_b = self._fit_rows(ss, cur_ix[band], ncomp, cfg_b,
+                                        datas, noises)
+            lnz_b = to_host(fit_b.lnz[: band.size], "cube.lnz")
+            with span("cube.merge"):
+                fit = merge_fit_rows(fit, align_fit_meta(fit_b, fit), band,
+                                     np.arange(band.size), r_pad, r_b)
+            lnz = lnz.copy()
+            lnz[band] = lnz_b
         if stats is not None:
             stats["boundary"] = dict(
                 nlive=cfg_b.nlive, rows=int(band.size), r_pad=r_b,
                 replaced=int(band.size), pixels=cur_ix[band],
-                lnz=lnz_b, wall=time.perf_counter() - t0)
+                lnz=lnz_b, wall=sp.seconds)
         return fit, lnz
 
     def _fit_rung(self, ss, ncomp, cur_ix, prev_lnz, cfg, datas, noises):
@@ -341,29 +374,34 @@ class CubeFitter:
         against (``null_lnZ`` on rung 1)."""
         s_fit, s_retry, s_band = ss.spawn(3)
         n = cur_ix.size
-        t0 = time.perf_counter()
-        fit, r_pad = self._fit_rows(s_fit, cur_ix, ncomp, cfg, datas, noises)
-        lnz = fit.lnz[:n].cpu().numpy()
-        wall = time.perf_counter() - t0
-        ns = fit.ns
-        conv = ns.converged[:n].cpu().numpy()
-        n_dead = ns.n_dead[:n].cpu().numpy()
-        stats = dict(
-            ncomp=ncomp, R=n, r_pad=r_pad, nlive=cfg.nlive, wall=wall,
-            evals_per_px=float(ns.ncall[:n].double().mean()),
-            converged=int(conv.sum()), max_iter=ns.max_iter,
-            unconverged_short=int((n_dead[~conv] < ns.max_iter).sum()),
-        )
-        log.info("batch ladder: ncomp=%d R=%d (pad %d) nlive=%d took %.1fs",
-                 ncomp, n, r_pad, cfg.nlive, wall)
-        prev = fit.null_lnz[:n].cpu().numpy() if ncomp == 1 else prev_lnz
-        fit, lnz = self._refit_mode_losses(s_retry, fit, lnz, prev, cur_ix,
-                                           r_pad, ncomp, cfg, datas, noises,
-                                           stats)
-        fit, lnz = self._refine_boundary(s_band, fit, lnz, prev, cur_ix,
-                                         r_pad, ncomp, cfg, datas, noises,
-                                         stats)
-        stats["total_wall"] = time.perf_counter() - t0
+        with span("cube.rung", ncomp=ncomp, rows=n,
+                  r_pad=self._pad_quantum(n), nlive=cfg.nlive) as rung:
+            with span("cube.first_pass") as first:
+                fit, r_pad = self._fit_rows(s_fit, cur_ix, ncomp, cfg, datas,
+                                            noises)
+                lnz = to_host(fit.lnz[:n], "cube.lnz")
+            ns = fit.ns
+            conv = to_host(ns.converged[:n], "cube.converged")
+            n_dead = to_host(ns.n_dead[:n], "cube.n_dead")
+            stats = dict(
+                ncomp=ncomp, R=n, r_pad=r_pad, nlive=cfg.nlive,
+                wall=first.seconds,
+                evals_per_px=float(to_host(ns.ncall[:n], "cube.ncall")
+                                   .astype(np.float64).mean()),
+                converged=int(conv.sum()), max_iter=ns.max_iter,
+                unconverged_short=int((n_dead[~conv] < ns.max_iter).sum()),
+            )
+            log.info("batch ladder: ncomp=%d R=%d (pad %d) nlive=%d took "
+                     "%.1fs", ncomp, n, r_pad, cfg.nlive, first.seconds)
+            prev = to_host(fit.null_lnz[:n], "cube.null_lnz") if ncomp == 1 \
+                else prev_lnz
+            fit, lnz = self._refit_mode_losses(s_retry, fit, lnz, prev,
+                                               cur_ix, r_pad, ncomp, cfg,
+                                               datas, noises, stats)
+            fit, lnz = self._refine_boundary(s_band, fit, lnz, prev, cur_ix,
+                                             r_pad, ncomp, cfg, datas,
+                                             noises, stats)
+        stats["total_wall"] = rung.seconds
         return fit, lnz, prev, stats
 
     def _fit_batch_ladder(self, ss, batch_ix, datas, noises, cfg):
@@ -379,7 +417,8 @@ class CubeFitter:
                 break
             fit, lnz, prev, stats = self._fit_rung(
                 r_ss, ncomp, cur_ix, old_lnz, cfg, datas, noises)
-            recs = fit_group_records(fit, np.arange(cur_ix.size))
+            with span("cube.records"):
+                recs = fit_group_records(fit, np.arange(cur_ix.size))
             del fit
             records.extend(zip(cur_ix.tolist(), [ncomp] * cur_ix.size, recs))
             rungs.append(stats)
@@ -390,15 +429,18 @@ class CubeFitter:
             old_lnz = lnz[passed]
         return nbest, records, rungs
 
-    def _run_batch_with_retry(self, ss, batch_ix, datas, noises, cfg):
-        """One batch, re-run with fresh seeds on failure.  Returns the
-        ladder's ``(nbest, records, rungs)`` and the attempts it took, or
-        None once ``max_retries`` is spent (its pixels are left for
-        resume)."""
+    def _run_batch_with_retry(self, ss, batch_ix, datas, noises, cfg,
+                              chunk=0):
+        """One batch (chunk ``chunk``), re-run with fresh seeds on
+        failure.  Returns the ladder's ``(nbest, records, rungs)`` and the
+        attempts it took, or None once ``max_retries`` is spent (its
+        pixels are left for resume)."""
         for attempt, a_ss in enumerate(ss.spawn(self.max_retries + 1)):
             try:
-                return self._fit_batch_ladder(a_ss, batch_ix, datas, noises,
-                                              cfg), attempt + 1
+                with span("cube.batch", chunk=chunk, nlive=cfg.nlive,
+                          rows=int(batch_ix.size), attempt=attempt + 1):
+                    return self._fit_batch_ladder(a_ss, batch_ix, datas,
+                                                  noises, cfg), attempt + 1
             except Exception:
                 if attempt >= self.max_retries:
                     log.exception(
@@ -433,24 +475,28 @@ class CubeFitter:
         nlive_assign, _ = bucket_nlive(nlive_pix,
                                        n_buckets=self.nlive_buckets)
         chunk = 0
-        t_start = time.perf_counter()
+        t_start = now_ns()
         for level in np.unique(nlive_assign):
             sel = pixel_ix[nlive_assign == level]
             cfg = NSConfig(**dict(self.ns_kwargs, nlive=int(level)))
             for lo in range(0, sel.size, self.batch_size):
                 batch_ix = sel[lo:lo + self.batch_size]
                 (b_ss,) = root.spawn(1)
-                out = self._run_batch_with_retry(b_ss, batch_ix, datas,
-                                                 noises, cfg)
+                # the batch's records close before it is handed on: the
+                # caller's work between batches is not the batch's
+                with collect() as tr:
+                    out = self._run_batch_with_retry(b_ss, batch_ix, datas,
+                                                     noises, cfg, chunk)
+                _log_batch(chunk, tr)
                 if out is not None:
                     (nbest, records, rungs), attempts = out
                     yield BatchRecords(chunk=chunk, nlive=int(level),
                                        pixel_ix=batch_ix, nbest=nbest,
                                        records=records, rungs=rungs,
-                                       attempts=attempts)
+                                       attempts=attempts, trace=tr)
                 chunk += 1
         log.info("fit_cube: fitting done in %.1fs",
-                 time.perf_counter() - t_start)
+                 (now_ns() - t_start) / 1e9)
 
     def fit_cube(self, store_name="run/test_cube", nproc=1, seed=0,
                  timeout=None, resume=False, host_shard=False,

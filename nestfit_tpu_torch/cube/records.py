@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from nestfit_tpu_torch.sampling.results import MARGINAL_COLS, QUANTILES
+from nestfit_tpu_torch.utils.profiling import to_host
 
 _ICS = ("BIC", "AIC", "AICc", "null_BIC", "null_AIC", "null_AICc")
 
@@ -27,7 +28,7 @@ def fit_group_records(fit, rows):
     idx = torch.as_tensor(rows, device=fit.lnz.device)
 
     def host(x):
-        return x[idx].cpu().numpy()
+        return to_host(x[idx], "cube.records")
 
     ns, prod = fit.ns, fit.products
     null, lnz, lnz_err, max_ll = (host(x) for x in (

@@ -70,7 +70,6 @@ misses it and the fit prepares its own program, as without a plan.
 
 import dataclasses
 import math
-import time
 import warnings
 from typing import Callable
 
@@ -80,6 +79,7 @@ from nestfit_tpu_torch.device import resolve_device
 from nestfit_tpu_torch.ops import _build
 from nestfit_tpu_torch.sampling import graphs
 from nestfit_tpu_torch.sampling import sampler as _s
+from nestfit_tpu_torch.utils.profiling import now_ns, span
 
 _UNSET = object()
 # the JAX build_plan's keywords that select segmented programs
@@ -229,31 +229,33 @@ def compile_plan(tasks, max_workers=12, verbose=None, timeout=None):
             f"the plan installs {over} traced programs on one dp row, more "
             f"than graphs._PROGRAMS_CAP = {graphs._PROGRAMS_CAP} that the "
             "cache keeps: later ones would evict earlier ones")
-    t_all = time.perf_counter()
     done, recs, n_abandoned = set(), [], 0
-    for task in tasks:
-        if timeout is not None and time.perf_counter() - t_all > timeout:
-            n_abandoned += 1
-            continue
-        rec = {"name": task.name, "cache_hits": 0, "cache_misses": 0}
-        t0 = time.perf_counter()
-        if task.key in done:
-            rec["deduped"] = True
-        else:
-            rec.update(task.run())
-            done.add(task.key)
-        rec["wall_s"] = time.perf_counter() - t0
-        if task.graph_keys:
-            rec["keys"] = [list(k) for k in task.graph_keys]
-        recs.append(rec)
-        if verbose:
-            verbose(f"aot: {task.name} {rec['wall_s']:.2f}s"
-                    + (" (deduped)" if rec.get("deduped") else ""))
+    # the report's walls are the lengths of the plan's and tasks' spans
+    with span("aot.plan", n_tasks=len(tasks)) as plan:
+        for task in tasks:
+            if timeout is not None and \
+                    (now_ns() - plan.t0_ns) / 1e9 > timeout:
+                n_abandoned += 1
+                continue
+            rec = {"name": task.name, "cache_hits": 0, "cache_misses": 0}
+            with span("aot.task", name=task.name) as t:
+                if task.key in done:
+                    rec["deduped"] = True
+                else:
+                    rec.update(task.run())
+                    done.add(task.key)
+            rec["wall_s"] = t.seconds
+            if task.graph_keys:
+                rec["keys"] = [list(k) for k in task.graph_keys]
+            recs.append(rec)
+            if verbose:
+                verbose(f"aot: {task.name} {rec['wall_s']:.2f}s"
+                        + (" (deduped)" if rec.get("deduped") else ""))
     if n_abandoned and verbose:
         verbose(f"aot: {n_abandoned} tasks not started within {timeout} s; "
                 "they are prepared at first use")
     return {
-        "wall_s": time.perf_counter() - t_all,
+        "wall_s": plan.seconds,
         "n_programs": len(tasks),
         "n_errors": 0,
         "n_deduped": sum(1 for r in recs if r.get("deduped")),

@@ -23,6 +23,7 @@ from nestfit_tpu_torch.sampling.sampler import (
     _run_nested,
     _shard_data,
 )
+from nestfit_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,35 +129,41 @@ def fit_batch(
                          "traced mode fits the runner's own spectra")
     if data is None:
         data = runner.data_tree()
-    if mesh is None:
-        return _fit_rows(gen, runner, n_runs, config, n_post, dtype,
-                         segment_iters, data, active)
-    from nestfit_tpu_torch.parallel import mesh as _mesh
-    from nestfit_tpu_torch.sampling import graphs
+    with span("fit.batch", ncomp=runner.ncomp, rows=n_runs,
+              nlive=config.nlive, mode="traced" if traced else "segmented"):
+        if mesh is None:
+            return _fit_rows(gen, runner, n_runs, config, n_post, dtype,
+                             segment_iters, data, active)
+        from nestfit_tpu_torch.parallel import mesh as _mesh
+        from nestfit_tpu_torch.sampling import graphs
 
-    def row(k, rows, devices, gen_k):
-        r_k = _placed(runner, devices)
-        d_k = _shard_data(data, k, rows, n_runs, devices[0])
-        a_k = None if active is None else np.asarray(active)[rows]
-        fit = _fit_rows(gen_k, r_k, rows.stop - rows.start, config, n_post,
-                        dtype, segment_iters, d_k, a_k, shard=k)
-        return fit, graphs.thread_stats()
+        def row(k, rows, devices, gen_k):
+            r_k = _placed(runner, devices)
+            d_k = _shard_data(data, k, rows, n_runs, devices[0])
+            a_k = None if active is None else np.asarray(active)[rows]
+            fit = _fit_rows(gen_k, r_k, rows.stop - rows.start, config,
+                            n_post, dtype, segment_iters, d_k, a_k, shard=k)
+            return fit, graphs.thread_stats()
 
-    parts = _mesh.run_shards(mesh, gen, n_runs, row)
-    if traced:
-        graphs.last_stats = sum((p[1] for p in parts), graphs.TracedStats())
-    return _mesh.gather_rows([p[0] for p in parts], dev)
+        parts = _mesh.run_shards(mesh, gen, n_runs, row)
+        if traced:
+            graphs.last_stats = sum((p[1] for p in parts),
+                                    graphs.TracedStats())
+        return _mesh.gather_rows([p[0] for p in parts], dev)
 
 
 def _fit_rows(gen, runner, n_runs, config, n_post, dtype, segment_iters,
               data, active, shard=0) -> FitResult:
     """:func:`fit_batch` of ``n_runs`` pixels on the runner's device."""
     dev = runner.device
-    ns = _run_nested(gen, _loglike2_for(runner, dtype), runner.ndim, n_runs,
-                     config, dtype, data, segment_iters, True, active,
-                     shard=shard, capture=not runner.spans_devices)
+    with span("fit.sampler"):
+        ns = _run_nested(gen, _loglike2_for(runner, dtype), runner.ndim,
+                         n_runs, config, dtype, data, segment_iters, True,
+                         active, shard=shard,
+                         capture=not runner.spans_devices)
     r2 = runner.with_data(data)
-    products = posterior_products(ns, r2.transform, gen, n_post=n_post)
+    with span("fit.products"):
+        products = posterior_products(ns, r2.transform, gen, n_post=n_post)
     null_lnz = torch.broadcast_to(
         torch.as_tensor(r2.null_lnZ, dtype=dtype, device=dev), ns.lnz.shape)
     ics = information_criteria(ns.max_loglike, null_lnz, r2.n_chan_tot,

@@ -46,6 +46,7 @@ import torch
 
 from nestfit_tpu_torch.ops import _build
 from nestfit_tpu_torch.sampling import sampler as _s
+from nestfit_tpu_torch.utils.profiling import count, span, to_host
 
 log = logging.getLogger("nestfit_tpu_torch.graphs")
 
@@ -158,7 +159,9 @@ class _Program:
         # a capture launches nothing: the launches it records are added
         # on each replay
         try:
-            with _CAPTURE_LOCK, _build.recording() as per_replay, \
+            with span("graphs.capture", rows=self.state.u.shape[0],
+                      n_iters=n_iters), \
+                    _CAPTURE_LOCK, _build.recording() as per_replay, \
                     torch.cuda.graph(graph, pool=self.pool,
                                      stream=self.stream,
                                      capture_error_mode="thread_local"):
@@ -301,7 +304,7 @@ def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,
     i = state.i
     while True:
         # the one host read of each block
-        done = prog.state.done.cpu().numpy()
+        done = to_host(prog.state.done, "ns.running")
         stats.done_reads += 1
         if done.all() or i >= cfg.max_iter:
             break
@@ -309,6 +312,7 @@ def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,
             stats.straggler_blocks += 1
         n = min(block, cfg.max_iter - i)
         prog.run_block(i, n, stats)
+        count("ns.blocks")
         i += n
     last_stats = _THREAD.stats = stats
     out = dataclasses.replace(prog.state, i=i, bounds=(), gen=caller_gen)

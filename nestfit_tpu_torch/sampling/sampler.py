@@ -54,6 +54,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from nestfit_tpu_torch.utils.profiling import count, span, to_host
+
 _NEG = -1e30  # sentinel for log-zero; avoids inf-inf NaNs in f32
 
 #: the segmented host loop's progress lines (MultiNest's ``fb`` feedback),
@@ -735,7 +737,7 @@ def _tables(cfg: NSConfig, L: int, like):
 def _running(s: _State, seg_end: int) -> bool:
     """Loop condition of every segment: not all done, i < seg_end (the
     done mask is read on the host)."""
-    return s.i < seg_end and not bool(s.done.all())
+    return s.i < seg_end and not bool(to_host(s.done.all(), "ns.running"))
 
 
 def _fill(s, rows, slots, cand, cand_lnl, use, zombie):
@@ -1011,7 +1013,7 @@ def ns_slice_fill(state: _State, loglike2, data, cfg: NSConfig) -> _State:
     unchanged (the JAX package's masked pass evaluates nothing then), so
     that case is decided on the host and skipped."""
     need = (~state.done) & (state.pending > 0)
-    if not bool(need.any()):
+    if not bool(to_host(need.any(), "ns.fill_need")):
         return state
     return _slice_fill_pass(state, loglike2, data,
                             cfg.resolved(state.u.shape[-1]))
@@ -1046,6 +1048,7 @@ def ns_segment(state: _State, loglike2, data, cfg: NSConfig,
     while _running(s, seg_end):
         s = _segment_core(s, loglike2, data, cfg, min(s.i + block, seg_end))
         s = ns_slice_fill(s, loglike2, data, cfg)
+        count("ns.blocks")
     return s
 
 
@@ -1316,10 +1319,13 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
     if not (segment_iters and segment_iters > 0):
         from nestfit_tpu_torch.sampling import graphs
 
-        state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
-        state = _apply_active(state, active)
-        return ns_finalize(graphs.run_traced(state, loglike2, data, cfg,
-                                             shard, capture), cfg)
+        with span("ns.init"):
+            state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
+            state = _apply_active(state, active)
+        state = graphs.run_traced(state, loglike2, data, cfg, shard, capture)
+        count("ns.iterations", state.i)
+        with span("ns.finalize"):
+            return ns_finalize(state, cfg)
 
     # ceff mode keeps rejection sampling alive by construction (the
     # adaptive shrink holds acceptance at its target): no regime switch
@@ -1329,8 +1335,9 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
     acc_thresh = cfg.cand_min_acc if cfg.cand_min_acc > 0 \
         else margin / (cfg.fallback_repeats * 2.6 + 0.6)
 
-    state = _apply_active(ns_init(gen, loglike2, data, ndim, n_runs, cfg,
-                                  dtype), active)
+    with span("ns.init"):
+        state = _apply_active(ns_init(gen, loglike2, data, ndim, n_runs,
+                                      cfg, dtype), active)
 
     acc = None                            # full-size accumulator
     orig_idx = np.arange(n_runs)          # current row -> original run
@@ -1346,7 +1353,7 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
     cand_sizes = set()
     while True:
         i = state.i
-        done_np = state.done.cpu().numpy()
+        done_np = to_host(state.done, "ns.done")
         if done_np.all() or i >= iter_cap:
             break
         active_rows = np.flatnonzero(~done_np)
@@ -1358,27 +1365,30 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
             while tgt < n_active:
                 tgt *= 4
             if tgt <= r_cur // 4:
-                if acc is None:
-                    acc = _strip_bounds(state)
-                else:
-                    acc = _scatter_state(acc, state, orig_idx)
-                active_orig = orig_idx[active_rows]
-                pad = np.full(tgt - n_active, active_orig[0], dtype=np.int64)
-                sel = np.concatenate([active_orig, pad])
-                sel_cur = np.concatenate([
-                    active_rows,
-                    np.full(len(pad), active_rows[0], dtype=np.int64),
-                ])
-                new_bounds = _gather_rows(state.bounds, sel_cur, r_cur)
-                state = _gather_state(acc, sel, n_runs)
-                state.bounds = new_bounds
-                state.done = torch.as_tensor(
-                    np.arange(tgt) >= n_active, device=state.u.device)
-                orig_idx = np.concatenate(
-                    [active_orig, np.full(len(pad), -1, dtype=np.int64)])
-                cur_data = None if data is None else \
-                    _gather_data(data, sel, n_runs)
-                r_cur = tgt
+                with span("ns.compact", rows_from=r_cur, rows_to=tgt):
+                    count("ns.compactions")
+                    if acc is None:
+                        acc = _strip_bounds(state)
+                    else:
+                        acc = _scatter_state(acc, state, orig_idx)
+                    active_orig = orig_idx[active_rows]
+                    pad = np.full(tgt - n_active, active_orig[0],
+                                  dtype=np.int64)
+                    sel = np.concatenate([active_orig, pad])
+                    sel_cur = np.concatenate([
+                        active_rows,
+                        np.full(len(pad), active_rows[0], dtype=np.int64),
+                    ])
+                    new_bounds = _gather_rows(state.bounds, sel_cur, r_cur)
+                    state = _gather_state(acc, sel, n_runs)
+                    state.bounds = new_bounds
+                    state.done = torch.as_tensor(
+                        np.arange(tgt) >= n_active, device=state.u.device)
+                    orig_idx = np.concatenate(
+                        [active_orig, np.full(len(pad), -1, dtype=np.int64)])
+                    cur_data = None if data is None else \
+                        _gather_data(data, sel, n_runs)
+                    r_cur = tgt
         if mode == "cand":
             step = min(cfg.switch_iters, segment_iters) if auto \
                 else segment_iters
@@ -1387,22 +1397,27 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
             cand_sizes.add(r_cur)
             if _NS_DEBUG:
                 t0 = _debug_clock(state)
-            state = ns_segment(state, loglike2, cur_data, cfg,
-                               min(i + step, iter_cap))
+            with span("ns.segment", mode="cand", i0=i, R=r_cur) as seg:
+                state = ns_segment(state, loglike2, cur_data, cfg,
+                                   min(i + step, iter_cap))
+                seg.set(i1=state.i)
+            count("ns.segments")
             if _NS_DEBUG:
                 print(f"ns-debug: cand seg i={i}->{state.i} R={r_cur} "
                       f"wall={_debug_clock(state) - t0:.2f}s "
                       f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
             if auto and len(state.bounds) == 7:
+                acc_ema = float(to_host(state.acc_ema, "ns.acc_ema"))
                 if _NS_DEBUG:
-                    in_cube = float(state.bounds[5].float().mean())
+                    in_cube = float(to_host(state.bounds[5].float().mean(),
+                                            "ns.debug"))
                     print(f"ns-debug: i={state.i} mode=cand "
-                          f"acc_ema={float(state.acc_ema):.4f} "
+                          f"acc_ema={acc_ema:.4f} "
                           f"in_cube={in_cube:.2f} "
-                          f"done={int(state.done.sum())}", flush=True)
+                          f"done={_n_done(state)}", flush=True)
                 # one-way switch once the union stops paying
                 i_floor = max(2 * cfg.bound_every, 8)
-                if state.i >= i_floor and float(state.acc_ema) < acc_thresh:
+                if state.i >= i_floor and acc_ema < acc_thresh:
                     state.bounds = _slim(state.bounds)
                     mode = "slice"
                     probe_at = state.i + cfg.switch_back_every * (
@@ -1410,12 +1425,14 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 probation = False
         else:
             if auto_back and i >= probe_at:
-                state, est = ns_rebuild_bounds(state, cfg)
+                with span("ns.probe", i=i, R=r_cur):
+                    state, est = ns_rebuild_bounds(state, cfg)
+                    est = float(to_host(est, "ns.probe_est"))
                 if _NS_DEBUG:
                     print(f"ns-debug: probe i={i} R={r_cur} "
-                          f"est={float(est):.4f} thresh={acc_thresh:.4f} "
+                          f"est={est:.4f} thresh={acc_thresh:.4f} "
                           f"cand_ready={r_cur in cand_sizes}", flush=True)
-                if r_cur in cand_sizes and float(est) > (
+                if r_cur in cand_sizes and est > (
                         cfg.switch_back_margin * acc_thresh):
                     # prime the EMA to exactly the break-even threshold;
                     # the probation segment then measures the real rate
@@ -1432,17 +1449,22 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 else segment_iters
             if _NS_DEBUG:
                 t0 = _debug_clock(state)
-            state = ns_segment_slice(state, loglike2, cur_data, cfg,
-                                     min(i + step_s, iter_cap))
+            with span("ns.segment", mode="slice", i0=i, R=r_cur) as seg:
+                state = ns_segment_slice(state, loglike2, cur_data, cfg,
+                                         min(i + step_s, iter_cap))
+                seg.set(i1=state.i)
+            count("ns.segments")
             if _NS_DEBUG:
                 print(f"ns-debug: slice seg i={i}->{state.i} R={r_cur} "
                       f"wall={_debug_clock(state) - t0:.2f}s "
-                      f"done={int(state.done.sum())} "
+                      f"done={_n_done(state)} "
                       f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
 
-    if acc is not None:
-        state = _scatter_state(acc, state, orig_idx)
-    return ns_finalize(_strip_bounds(state), cfg)
+    count("ns.iterations", state.i)
+    with span("ns.finalize"):
+        if acc is not None:
+            state = _scatter_state(acc, state, orig_idx)
+        return ns_finalize(_strip_bounds(state), cfg)
 
 
 def _debug_clock(state):
@@ -1455,7 +1477,12 @@ def _debug_clock(state):
 def _ncall_mean(state):
     """Mean likelihood calls per row, as the JAX package's progress lines
     take it (NumPy's mean of the int32 counts)."""
-    return state.ncall.cpu().numpy().mean()
+    return to_host(state.ncall, "ns.debug").mean()
+
+
+def _n_done(state):
+    """Runs done (progress lines)."""
+    return int(to_host(state.done.sum(), "ns.debug"))
 
 
 def _gather_data(data, idx, n_rows):

@@ -220,6 +220,9 @@ DEFAULTS = {
         ("'nestfit_tpu'", "'nestfit_tpu_torch'"),
     # both float64
     ("cube/products.py", "nans", "dtype"): ("None", "_F64"),
+    # the port's exporter writes where it is told, not to a fixed path
+    ("utils/profiling.py", "trace", "log_dir"):
+        ("'/tmp/nestfit_trace'", None),
     # the port resolves these per mode (``segment_iters``)
     **{("sampling/aot.py", "build_plan", a): (j, "_UNSET") for a, j in (
         ("n_post", "0"), ("r_classes", "None"),

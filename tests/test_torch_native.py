@@ -10,6 +10,10 @@ Also the tolerance between the port's plain float32 transform (and the
 JAX package's own) and the engine's, which ``chip_smoke.py`` holds the
 kernels to on the card."""
 
+import fcntl
+import shutil
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +55,29 @@ CONSTRUCTORS = ["get_irdc_priors", "get_gaussian_priors",
                 "get_diazenylium_priors", "get_synth_priors"]
 # where the JAX transform raises: a centre/separation prior past ncomp 2
 JAX_RAISES = {("get_synth_priors", 3), ("get_synth_priors", 4)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_engine():
+    """The JAX package's engine, loaded in this process.
+
+    Its binding builds ``cpp/libnestfit_native.so`` on first load with
+    ``make -B`` through one fixed temporary file, and remembers a failed
+    load for the life of the process.  On a checkout without the
+    library, every xdist worker loads it at once at collection
+    (``tests/test_native.py``'s module-level ``skipif``): the builds
+    overwrite each other's temporary file, and a worker may load, or
+    leave on disk, a half-written library.  So a worker that has no
+    engine rebuilds the library, one worker at a time, and loads it
+    again."""
+    if not jnative.available() and shutil.which("make") is not None:
+        jb = jnative.bindings
+        with open(jb._CPP_DIR / ".native_build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-B", "-C", str(jb._CPP_DIR)],
+                           capture_output=True, timeout=300)
+        jb._LIB, jb._TRIED = None, False
+        jnative.available()
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """The port's profiling helpers (``nestfit_tpu_torch/utils/profiling.py``)
-on the CPU: ``trace`` writes a Chrome trace, ``time_fn`` and
-``profile_predict`` time real work."""
+on the CPU: ``trace`` writes a Chrome trace with the program's spans,
+``time_fn`` and ``profile_predict`` time real work."""
 
 import json
 
@@ -11,6 +11,7 @@ import torch
 from nestfit_tpu_torch.models import AmmoniaRunner, ammonia
 from nestfit_tpu_torch.models.tables import AMMONIA_TRANSITIONS
 from nestfit_tpu_torch.priors import get_irdc_priors
+from nestfit_tpu_torch.sampling import NSConfig, fit_batch
 from nestfit_tpu_torch.utils import freq_axis_from_velocity
 from nestfit_tpu_torch.utils.profiling import profile_predict, time_fn, trace
 
@@ -27,13 +28,23 @@ def _runner(n_pix=4):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    x = torch.rand(64, 64)
+    """``trace(log_dir)`` exports the block's operations and, above them,
+    the program's spans of a small segmented ``fit_batch``; the
+    directory is required."""
+    runner = _runner()
+    gen = torch.Generator().manual_seed(0)
     with trace(tmp_path / "tr") as prof:
-        (x @ x).sum()
+        fit_batch(gen, runner, 4, NSConfig(nlive=16, tol=5.0, max_iter=64),
+                  n_post=16, segment_iters=32, device="cpu")
     path = tmp_path / "tr" / "trace.json"
-    events = json.loads(path.read_text())["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
+    names = {str(e.get("name", ""))
+             for e in json.loads(path.read_text())["traceEvents"]}
+    assert any("mm" in n for n in names)
+    assert {"fit.batch", "fit.sampler", "fit.products", "ns.init",
+            "ns.segment", "ns.finalize"} <= names
     assert prof.key_averages()
+    with pytest.raises(TypeError):
+        trace()
 
 
 def test_time_fn_on_the_cpu():
