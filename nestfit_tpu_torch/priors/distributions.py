@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from scipy import integrate, interpolate
 
-from nestfit_tpu_torch.device import resolve_device
+from nestfit_tpu_torch.device import resolve_device, same_device
 from nestfit_tpu_torch.ops import tables as table_ops
 
 
@@ -60,6 +60,11 @@ class Distribution:
         return (self.size - 1) / 2.0
 
     def to(self, device) -> "Distribution":
+        """On ``device``; itself when it is there already, so tables that a
+        captured CUDA graph reads by address stay where they are when a
+        runner sharing this prior is built."""
+        if same_device(self.xax.device, device):
+            return self
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(device)
             for f in ("xax", "pdf", "cdf", "ppf", "t0", "t1c", "t2c")})

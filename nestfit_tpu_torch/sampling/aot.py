@@ -25,12 +25,16 @@ JAX program            port task
                        the kernels' libraries and one likelihood call
                        of the runner on its own data (its device tables)
 ``init@R``             eager, nothing to prepare
-``cand@R``             eager, nothing to prepare
-``slice@R``            eager, nothing to prepare
+``cand@R``             not prepared: ``graphs.SegmentedRun`` captures
+                       the candidate iteration and the slice fill as
+                       CUDA graphs at first use, in the fit
+``slice@R``            not prepared: the kill+slice iteration, captured
+                       at first use likewise
 ``fin@R``              eager, nothing to prepare
 ``rebuild@R``          eager, nothing to prepare
 ``finalize@R``         eager, nothing to prepare
-``slice@c`` classes    eager, nothing to prepare
+``slice@c`` classes    not prepared: each compaction class's units are
+                       captured at first use likewise
 (traced mode)          ``<label>:traced@R``: the program of ``graphs``
                        on the state ``ns_init`` gives for the runner's
                        own data, its warm-up block, and the graph of
@@ -42,8 +46,9 @@ JAX program            port task
 The keywords of the JAX ``build_plan`` that select segmented programs
 (``n_post``, ``r_classes``, ``kinds_full``, ``kinds_classes``, and
 ``data`` in the segmented mode) are accepted and warn: those programs
-run eagerly and there is nothing to prepare for them.  ``compile_plan``
-takes ``max_workers`` and leaves it unused: the tasks run in order.
+are captured at first use, in the fit, and the plan prepares nothing
+for them.  ``compile_plan`` takes ``max_workers`` and leaves it unused:
+the tasks run in order.
 
 Deliberate departures from the JAX module:
 
@@ -162,7 +167,8 @@ def build_plan(runner, n_runs, config=None, *, n_post=_UNSET,
     if named:
         warnings.warn(
             f"build_plan: {', '.join(named)} select the JAX package's "
-            "segmented programs, which run eagerly here: nothing to prepare",
+            "segmented programs, which are captured at first use here: "
+            "nothing to prepare",
             stacklevel=2)
     dev = resolve_device(device)
     if runner.device != dev:

@@ -1,5 +1,6 @@
-"""The traced mode's blocks as CUDA graphs (``sampling/aot.py`` prepares
-them before a fit's first batch).
+"""The traced mode's blocks, and the segmented loop's units, as CUDA
+graphs (``sampling/aot.py`` prepares the traced ones before a fit's
+first batch).
 
 The JAX package traces ``run_nested(segment_iters=0)`` into one program:
 ``ns_init``, a ``lax.while_loop`` of blocks (``block_iters`` candidate
@@ -36,8 +37,26 @@ run in ``"thread_local"`` error mode, so another row's launches and host
 reads during a capture neither break it nor land in it.  A program whose
 likelihood spans several devices (a row split over ``sp`` devices) is not
 captured: its blocks run eagerly, with a warning.
+
+The segmented mode (``segment_iters > 0``) keeps its host loop of
+segments, done-mask reads, compactions, probes and regime switches;
+:class:`SegmentedRun` runs each unit of work the loop launches (a
+candidate iteration, the slice fill after a candidate block, a
+kill+slice iteration) on a kept static state, one per compaction class,
+both regimes in it.  On a CUDA device the whole run goes on its dp
+row's stream (:func:`row_stream`); a unit's first run on its key (unit,
+refresh flag, bounds form) is eager and is followed by the key's
+capture, and every later run is one replay.  The dead-point buffers stay
+the run's own, out of the graphs: a unit leaves its dead records in
+small static tensors, which are written into the run's buffers after
+it.  The units count ``ns.graph_steps`` (replays), ``ns.eager_steps``
+(run eagerly on the card) and ``ns.graph_captures`` into the recorder.
+A likelihood that spans devices runs the plain loop (``capture=False``).
+A graph reads every table it uses by address (the prior's, the
+runner's, the sampler's constants): they must stay where they are.
 """
 
+import contextlib
 import dataclasses
 import logging
 import threading
@@ -80,9 +99,11 @@ _CAPTURE_LOCK = threading.Lock()   # one capture at a time
 
 
 def clear():
-    """Drop the kept programs (their graphs and static tensors)."""
+    """Drop the kept programs (their graphs and static tensors), the
+    segmented loop's too."""
     with _LOCK:
         _PROGRAMS.clear()
+        _SEG_PROGRAMS.clear()
 
 
 def thread_stats() -> TracedStats:
@@ -322,3 +343,234 @@ def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,
         out = dataclasses.replace(out, **{
             f: getattr(out, f).clone() for f in _FIELDS})
     return out
+
+
+# The segmented loop (segment_iters > 0): its units as graph replays.
+
+#: the small per-run tensors of a state (the dead buffers stay the run's)
+_SMALL = tuple(f for f in _FIELDS if f not in ("dead_u", "dead_lnl"))
+_SEG_PROGRAMS = {}   # _seg_key -> _SegProgram, least recently used first
+_SEG_CAP = 12        # kept segmented programs per dp row
+_SEG_STREAMS = {}    # (device, dp row) -> the row's segmented stream
+
+
+def _seg_stream(device, shard: int):
+    """The stream of a dp row's segmented runs, on which their units run,
+    are captured and are replayed.  The caller holds ``_LOCK``."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    key = (device, shard)
+    if key not in _SEG_STREAMS:
+        _SEG_STREAMS[key] = torch.cuda.Stream(device)
+    return _SEG_STREAMS[key]
+
+
+@contextlib.contextmanager
+def row_stream(device, shard: int):
+    """Run the block on the dp row's segmented stream (on a CUDA device),
+    in order with the caller's stream on both sides.  The whole run goes
+    there, so the libraries' per-stream handles and workspaces (cuBLAS
+    keeps 32 MiB for each stream it runs on) serve the eager work, the
+    captures and the replays alike."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield
+        return
+    with _LOCK:
+        stream = _seg_stream(device, shard)
+    caller = torch.cuda.current_stream(device)
+    stream.wait_stream(caller)
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        caller.wait_stream(stream)
+
+
+class _SegProgram:
+    """The segmented loop's units on one static state of ``R`` runs: its
+    small per-run tensors, a static bounds tuple for each bounds form
+    met (the candidate regime's 7 tensors, the kill+slice regime's 3),
+    the data, and the last unit's dead records, which the caller writes
+    into the run's own dead buffers.  Both regimes share it.
+
+    On a CUDA device, on the row's stream (:func:`row_stream`), each key
+    ``(unit, flag, bounds form)`` runs eagerly the first time and is then
+    captured as a CUDA graph, which every later run of the key replays;
+    the graphs share one pool and draw from the program's generator.  On
+    the CPU every unit runs eagerly on the static state."""
+
+    def __init__(self, state: _s._State, loglike2, data, cfg):
+        self.on_card = state.u.is_cuda
+        self.loglike2, self.cfg = loglike2, cfg
+        self.state = dataclasses.replace(
+            state, dead_u=None, dead_lnl=None, bounds=(),
+            **{f: getattr(state, f).clone() for f in _SMALL})
+        self.bounds = {}          # bounds form -> static tuple
+        self.data = _clone_tree(data)
+        R, _, D = state.u.shape
+        K, dev = cfg.kill_k, state.u.device
+        # _kill_select's records: rows, columns, points, lnL, mask
+        self.kills = (torch.empty((R, K), dtype=torch.long, device=dev),
+                      torch.empty((R, K), dtype=torch.long, device=dev),
+                      torch.empty((R, K, D), dtype=state.u.dtype, device=dev),
+                      torch.empty((R, K), dtype=state.lnl.dtype, device=dev),
+                      torch.empty((R, K), dtype=torch.bool, device=dev))
+        self.gen = torch.Generator(device=dev) if self.on_card else None
+        self.graphs = {}          # key -> (graph, launches per replay)
+        self.pool = None
+
+    def load(self, state: _s._State, data, gen) -> _s._State:
+        """The static view of ``state``: its small tensors, bounds and
+        ``data`` copied into the static ones (tensors already static
+        stay), its dead buffers its own, drawing from ``gen``."""
+        _copy([getattr(self.state, f) for f in _SMALL],
+              [getattr(state, f) for f in _SMALL])
+        n = len(state.bounds)
+        if n in self.bounds:
+            _copy(self.bounds[n], state.bounds)
+        else:
+            self.bounds[n] = tuple(b.clone() for b in state.bounds)
+        _copy(_leaves(self.data), _leaves(data))
+        return dataclasses.replace(
+            self.state, gen=gen, i=state.i, bounds=self.bounds[n],
+            dead_u=state.dead_u, dead_lnl=state.dead_lnl)
+
+    def _unit(self, kind: str, flag: bool, s: _s._State):
+        """One unit from the static view ``s``, its result copied back
+        into the static tensors (eagerly, or into a capture)."""
+        st = dataclasses.replace(s, dead_u=None, dead_lnl=None)
+        args = (st, self.loglike2, self.data, self.cfg)
+        kills = None
+        if kind == "cand":
+            out, kills = _s._cand_iter(*args, flag)
+        elif kind == "slice":
+            out, kills = _s._slice_iter(*args, flag)
+        else:
+            out = _s._slice_fill_pass(*args)
+        _copy([getattr(s, f) for f in _SMALL] + list(s.bounds),
+              [getattr(out, f) for f in _SMALL] + list(out.bounds))
+        if kills is not None:
+            _copy(self.kills, kills)
+
+    def _capture(self, kind: str, flag: bool, s: _s._State):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        # torch.cuda.graph would empty the allocator's cache first; a
+        # capture here runs between eager units that refill it
+        try:
+            with span("graphs.capture", rows=s.u.shape[0], n_iters=1,
+                      mode=kind), \
+                    _CAPTURE_LOCK, _build.recording() as per_replay:
+                # on the current stream: the row's (row_stream)
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self._unit(kind, flag, s)
+                finally:
+                    graph.capture_end()
+        except RuntimeError as exc:
+            raise RuntimeError(
+                f"capturing the segmented loop's {kind} unit "
+                f"({s.u.shape[0]} runs) as a CUDA graph failed: "
+                f"{exc}") from exc
+        if self.pool is None:
+            self.pool = graph.pool()
+        count("ns.graph_captures")
+        return graph, per_replay
+
+    def run(self, kind: str, flag: bool, s: _s._State) -> _s._State:
+        """Run unit ``kind`` (``"cand"``, refresh ``flag``; ``"fill"``;
+        ``"slice"``, rebuild ``flag``) from the static view ``s``, write
+        its dead records into ``s``'s dead buffers, and return the view
+        after it."""
+        key = (kind, flag, len(s.bounds))
+        if not self.on_card:
+            self._unit(kind, flag, s)
+        elif key not in self.graphs:
+            # the key's first run is eager, so that whatever its path makes
+            # at first use exists; then its graph is captured (a capture
+            # runs nothing) for its later runs
+            self._unit(kind, flag, s)
+            count("ns.eager_steps")
+            self.graphs[key] = self._capture(kind, flag, s)
+        else:
+            graph, per_replay = self.graphs[key]
+            graph.replay()
+            _build.add_launches(per_replay)
+            count("ns.graph_steps")
+        if kind == "fill":
+            return s
+        _s._record_kills(s.dead_u, s.dead_lnl, self.kills)
+        return dataclasses.replace(s, i=s.i + 1)
+
+
+def _seg_key(state: _s._State, loglike2, data, cfg, shard: int) -> tuple:
+    """A segmented program's key: :func:`program_key` at the state's
+    ``[R, L, D]`` (``R`` the compaction class), with the bounds form and
+    the regime left to the graphs' keys."""
+    return ("segmented",) + program_key(
+        loglike2, shard, True, cfg, state.u.shape, state.u.dtype,
+        state.u.device, 0, data)
+
+
+def _seg_program(state: _s._State, loglike2, data, cfg,
+                 shard: int) -> _SegProgram:
+    """The kept segmented program for ``state``, or a new one (each dp
+    row keeps its ``_SEG_CAP`` most recently used)."""
+    key = _seg_key(state, loglike2, data, cfg, shard)
+    with _LOCK:
+        prog = _SEG_PROGRAMS.pop(key, None)
+        if prog is None:
+            mine = [k for k in _SEG_PROGRAMS if k[2] == shard]
+            while len(mine) >= _SEG_CAP:
+                _SEG_PROGRAMS.pop(mine.pop(0))
+            prog = _SegProgram(state, loglike2, data, cfg)
+        _SEG_PROGRAMS[key] = prog
+        return prog
+
+
+class SegmentedRun(_s._Units):
+    """One segmented run's units on kept static programs, one per
+    compaction class: ``sampler._run_nested`` enters a segment with
+    :meth:`enter` and runs its iterations and fills through it.
+
+    The first program draws from its caller's generator state, and each
+    next program from its predecessor's; :meth:`close` hands the state
+    back, so the caller's generator moves as it would eagerly.  A state
+    the caller keeps (the final one, the accumulator of a compaction)
+    is cloned out of the program first: the next run with the same key
+    overwrites the static tensors."""
+
+    def __init__(self, loglike2, cfg, shard: int, gen: torch.Generator):
+        super().__init__(loglike2, cfg)
+        self.shard, self.caller_gen, self.gen = shard, gen, gen
+        self.prog = None
+
+    def enter(self, state: _s._State, data) -> _s._State:
+        prog = _seg_program(state, self.loglike2, data, self.cfg,
+                            self.shard)
+        if prog.on_card and prog.gen is not self.gen:
+            prog.gen.set_state(self.gen.get_state())
+            self.gen = prog.gen
+        self.prog = prog
+        return prog.load(state, data, self.gen)
+
+    def own(self, state: _s._State) -> _s._State:
+        return dataclasses.replace(
+            state, **{f: getattr(state, f).clone() for f in _SMALL})
+
+    def close(self, state: _s._State) -> _s._State:
+        if self.gen is not self.caller_gen:
+            self.caller_gen.set_state(self.gen.get_state())
+        return dataclasses.replace(self.own(state), gen=self.caller_gen)
+
+    def cand(self, s, refresh):
+        return self.prog.run("cand", refresh, s)
+
+    def fill(self, s):
+        return self.prog.run("fill", False, s)
+
+    def slice(self, s, slim):
+        return self.prog.run("slice", slim, s)

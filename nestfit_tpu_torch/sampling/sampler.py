@@ -11,7 +11,8 @@ kill+slice regime).  In the segmented mode a host loop switches between
 the two, probes for a switch back, and compacts straggler runs; the
 traced mode (``segment_iters=0``) repeats one block of ``block_iters``
 candidate iterations and a masked slice fill until every run is done
-(``graphs.py`` captures the block as a CUDA graph on the card).  The JAX
+(``graphs.py`` captures the block as a CUDA graph on the card, and each
+unit of the segmented loop too).  The JAX
 package documents the algorithm and its measured choices; this module
 keeps its structure so the two can be read side by side.
 
@@ -670,11 +671,12 @@ def ns_init(gen, loglike2, data, ndim: int, n_runs: int, cfg: NSConfig,
     )
 
 
-def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
-    """One batched-deletion step: record the kill_k worst live points of
-    every run whose previous fill-cycle completed.  Writes the dead
-    buffers of ``s`` in place; returns ``(lnz, n_deaths, pending,
-    zombie, thresh)`` (``zombie`` a new tensor)."""
+def _kill_select(s: _State, cfg: NSConfig, lnw_tab, rr):
+    """One batched-deletion step: the kill_k worst live points of every
+    run whose previous fill-cycle completed.  Writes nothing; returns
+    ``(kills, lnz, n_deaths, pending, zombie, thresh)``, ``kills`` the
+    step's dead records ``(rows, cols, u, lnl, ok)`` for
+    :func:`_record_kills`."""
     R, L, D = s.u.shape
     K = cfg.kill_k
     max_iter = cfg.max_iter
@@ -688,8 +690,6 @@ def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
     # slots past the budget (n_deaths <= max_iter) write back K columns
     # lower, where no slot of the row writes: every pair stays distinct
     pos_w = torch.where(pos < max_iter, pos, pos - K)
-    _put_inplace(s.dead_u, rrk, pos_w, kill_u, ok_w)
-    _put_inplace(s.dead_lnl, rrk, pos_w, kill_lnl, ok_w)
     lnw_k = lnw_tab[torch.clamp(pos, 0, max_iter - 1)]
     contrib = torch.logsumexp(
         torch.where(ok_w, lnw_k + kill_lnl, _NEG), dim=1)
@@ -700,7 +700,25 @@ def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
     zombie = _put(s.zombie, rrk, worst_idx, torch.ones_like(ok_w),
                   need_kill[:, None].expand(R, K))
     thresh = torch.where(need_kill, thresh_new, s.thresh)
-    return lnz, n_deaths, pending, zombie, thresh
+    return (rrk, pos_w, kill_u, kill_lnl, ok_w), lnz, n_deaths, pending, \
+        zombie, thresh
+
+
+def _record_kills(dead_u, dead_lnl, kills):
+    """Write a step's dead records (:func:`_kill_select`) into the dead
+    buffers, in place."""
+    rows, cols, kill_u, kill_lnl, ok = kills
+    _put_inplace(dead_u, rows, cols, kill_u, ok)
+    _put_inplace(dead_lnl, rows, cols, kill_lnl, ok)
+
+
+def _kill_record(s: _State, cfg: NSConfig, lnw_tab, rr):
+    """:func:`_kill_select`, its records written into the dead buffers
+    of ``s`` in place; returns ``(lnz, n_deaths, pending, zombie,
+    thresh)`` (``zombie`` a new tensor)."""
+    kills, *rest = _kill_select(s, cfg, lnw_tab, rr)
+    _record_kills(s.dead_u, s.dead_lnl, kills)
+    return tuple(rest)
 
 
 def _check_termination(cfg: NSConfig, lnx_tab, done, zombie, lnl, lnz,
@@ -755,6 +773,14 @@ def _core_step(s: _State, loglike2, data, cfg: NSConfig,
     ``refresh``), one batched proposal launch (ellipsoid candidates, or
     one slice chain per run for ``method="slice"``), fills, termination.
     Every row that is done stays as it is.  ``cfg`` is resolved."""
+    out, kills = _cand_iter(s, loglike2, data, cfg, refresh)
+    _record_kills(s.dead_u, s.dead_lnl, kills)
+    return out
+
+
+def _cand_iter(s: _State, loglike2, data, cfg: NSConfig, refresh: bool):
+    """:func:`_core_step` without the write into the dead buffers, which
+    it does not read: returns ``(state, kills)``."""
     R, L, D = s.u.shape
     like = s.u
     dtype = like.dtype
@@ -768,7 +794,8 @@ def _core_step(s: _State, loglike2, data, cfg: NSConfig,
     wrap = _wrap_vec(cfg, D, like)
     gen = s.gen
     shift = s.lnl_shift
-    lnz, n_deaths, pending, zombie, thresh = _kill_record(s, cfg, lnw_tab, rr)
+    kills, lnz, n_deaths, pending, zombie, thresh = _kill_select(
+        s, cfg, lnw_tab, rr)
     active = (~s.done) & (pending > 0)
     # periodic dims: the geometry sees minimal-image coordinates
     u_geo = _recenter(s.u, wrap)
@@ -895,18 +922,62 @@ def _core_step(s: _State, loglike2, data, cfg: NSConfig,
         converged=s.converged | newly_conv, n_deaths=n_deaths,
         pending=pending, thresh=thresh, zombie=zombie, stall=stall,
         ncall=ncall, i=s.i + 1, bounds=bounds, acc_ema=acc_ema,
-        ceff_mult=ceff_mult)
+        ceff_mult=ceff_mult), kills
+
+
+class _Units:
+    """The segmented loop's units of work, run eagerly on the run's own
+    tensors: a candidate iteration, the slice fill after a candidate
+    block, a kill+slice iteration.  ``graphs.SegmentedRun`` runs the same
+    units on kept static states, as CUDA graph replays on the card.
+    ``cfg`` is resolved."""
+
+    def __init__(self, loglike2, cfg: NSConfig, data=None):
+        self.loglike2, self.cfg, self.data = loglike2, cfg, data
+
+    def enter(self, state: _State, data) -> _State:
+        """Start a segment of ``state`` on ``data``."""
+        self.data = data
+        return state
+
+    def own(self, state: _State) -> _State:
+        """``state`` with no tensor that a later segment overwrites."""
+        return state
+
+    def close(self, state: _State) -> _State:
+        """The run's final state, owned by the caller."""
+        return state
+
+    def _count(self, s: _State):
+        if s.u.is_cuda:
+            count("ns.eager_steps")
+
+    def cand(self, s: _State, refresh: bool) -> _State:
+        self._count(s)
+        return _core_step(s, self.loglike2, self.data, self.cfg, refresh)
+
+    def fill(self, s: _State) -> _State:
+        self._count(s)
+        return _slice_fill_pass(s, self.loglike2, self.data, self.cfg)
+
+    def slice(self, s: _State, slim: bool) -> _State:
+        self._count(s)
+        out, kills = _slice_iter(s, self.loglike2, self.data, self.cfg, slim)
+        _record_kills(s.dead_u, s.dead_lnl, kills)
+        return out
 
 
 def _segment_core(state: _State, loglike2, data, cfg: NSConfig,
-                  seg_end: int) -> _State:
+                  seg_end: int, units: _Units = None) -> _State:
     """Advance all runs until ``i >= seg_end`` or every run is done with
-    kill/record + candidate proposals only."""
+    kill/record + candidate proposals only (``units``: a segment already
+    entered)."""
     cfg = cfg.resolved(state.u.shape[-1])
+    units = units or _Units(loglike2, cfg, data)
     be = max(1, cfg.bound_every)
     s = state
     while _running(s, seg_end):
-        s = _core_step(s, loglike2, data, cfg, s.i % be == 0)
+        s = units.cand(s, s.i % be == 0)
     return s
 
 
@@ -944,43 +1015,52 @@ def _slice_pass(s: _State, u_geo, loglike2, data, cfg, chol, mu, rmax, act,
     return u_new, lnl_new, zombie, pending - n_ins, n_ins, nc
 
 
-def ns_segment_slice(state: _State, loglike2, data, cfg: NSConfig,
-                     seg_end: int) -> _State:
-    """Advance runs with kill + multi-chain slice iterations until
-    ``i >= seg_end`` or every run is done (the kill+slice regime)."""
-    R, L, D = state.u.shape
-    cfg = cfg.resolved(D)
-    like = state.u
+def _slice_iter(s: _State, loglike2, data, cfg: NSConfig, slim: bool):
+    """One kill+slice iteration, the whitening rebuilt when ``slim``;
+    writes nothing into the dead buffers: returns ``(state, kills)``.
+    ``cfg`` is resolved."""
+    R, L, D = s.u.shape
+    like = s.u
     lnx_tab, lnw_tab = _tables(cfg, L, like)
     rr = torch.arange(R, device=like.device)
     act, act_np = _act_arrays(cfg, D, like)
     wrap = _wrap_vec(cfg, D, like)
     n_rep = (cfg.n_repeats if cfg.method == "slice"
              else cfg.fallback_repeats)
+    kills, lnz, n_deaths, pending, zombie, thresh = _kill_select(
+        s, cfg, lnw_tab, rr)
+    u_geo = _recenter(s.u, wrap)
+    if slim:
+        chol, mu, rmax = _slim_bounds(u_geo, zombie, act, act_np, cfg)
+    else:
+        chol, mu, rmax = s.bounds
+    need = (~s.done) & (pending > 0)
+    u_new, lnl_new, zombie, pending, n_ins, nc = _slice_pass(
+        s, u_geo, loglike2, data, cfg, chol, mu, rmax, act, pending,
+        zombie, thresh, need, n_rep, wrap)
+    stall = torch.where(
+        need & (n_ins == 0) & (pending > 0), s.stall + 1,
+        torch.where(n_ins > 0, 0, s.stall)).to(torch.int32)
+    newly_done, newly_conv = _check_termination(
+        cfg, lnx_tab, s.done, zombie, lnl_new, lnz, n_deaths, stall)
+    return dataclasses.replace(
+        s, u=u_new, lnl=lnl_new, lnz=lnz, done=s.done | newly_done,
+        converged=s.converged | newly_conv, n_deaths=n_deaths,
+        pending=pending, thresh=thresh, zombie=zombie, stall=stall,
+        ncall=s.ncall + nc, i=s.i + 1, bounds=(chol, mu, rmax)), kills
+
+
+def ns_segment_slice(state: _State, loglike2, data, cfg: NSConfig,
+                     seg_end: int, units: _Units = None) -> _State:
+    """Advance runs with kill + multi-chain slice iterations until
+    ``i >= seg_end`` or every run is done (the kill+slice regime;
+    ``units`` runs the iterations, eagerly by default)."""
+    cfg = cfg.resolved(state.u.shape[-1])
+    units = units or _Units(loglike2, cfg)
     sbe = max(1, cfg.slice_bound_every)
-    s = state
+    s = units.enter(state, data)
     while _running(s, seg_end):
-        lnz, n_deaths, pending, zombie, thresh = _kill_record(s, cfg, lnw_tab,
-                                                               rr)
-        u_geo = _recenter(s.u, wrap)
-        if sbe == 1 or s.i % sbe == 0:
-            chol, mu, rmax = _slim_bounds(u_geo, zombie, act, act_np, cfg)
-        else:
-            chol, mu, rmax = s.bounds
-        need = (~s.done) & (pending > 0)
-        u_new, lnl_new, zombie, pending, n_ins, nc = _slice_pass(
-            s, u_geo, loglike2, data, cfg, chol, mu, rmax, act, pending,
-            zombie, thresh, need, n_rep, wrap)
-        stall = torch.where(
-            need & (n_ins == 0) & (pending > 0), s.stall + 1,
-            torch.where(n_ins > 0, 0, s.stall)).to(torch.int32)
-        newly_done, newly_conv = _check_termination(
-            cfg, lnx_tab, s.done, zombie, lnl_new, lnz, n_deaths, stall)
-        s = dataclasses.replace(
-            s, u=u_new, lnl=lnl_new, lnz=lnz, done=s.done | newly_done,
-            converged=s.converged | newly_conv, n_deaths=n_deaths,
-            pending=pending, thresh=thresh, zombie=zombie, stall=stall,
-            ncall=s.ncall + nc, i=s.i + 1, bounds=(chol, mu, rmax))
+        s = units.slice(s, sbe == 1 or s.i % sbe == 0)
     return s
 
 
@@ -1007,16 +1087,18 @@ def ns_rebuild_bounds(state: _State, cfg: NSConfig):
     return dataclasses.replace(state, bounds=bounds), est_mean
 
 
-def ns_slice_fill(state: _State, loglike2, data, cfg: NSConfig) -> _State:
+def ns_slice_fill(state: _State, loglike2, data, cfg: NSConfig,
+                  units: _Units = None) -> _State:
     """Fill pending kill slots with one batched multi-chain slice pass
     from the cached global geometry.  Nothing pending leaves the state
     unchanged (the JAX package's masked pass evaluates nothing then), so
-    that case is decided on the host and skipped."""
+    that case is decided on the host and skipped (``units``: a segment
+    already entered)."""
     need = (~state.done) & (state.pending > 0)
     if not bool(to_host(need.any(), "ns.fill_need")):
         return state
-    return _slice_fill_pass(state, loglike2, data,
-                            cfg.resolved(state.u.shape[-1]))
+    units = units or _Units(loglike2, cfg.resolved(state.u.shape[-1]), data)
+    return units.fill(state)
 
 
 def _slice_fill_pass(s: _State, loglike2, data, cfg: NSConfig) -> _State:
@@ -1038,16 +1120,19 @@ def _slice_fill_pass(s: _State, loglike2, data, cfg: NSConfig) -> _State:
 
 
 def ns_segment(state: _State, loglike2, data, cfg: NSConfig,
-               seg_end: int) -> _State:
+               seg_end: int, units: _Units = None) -> _State:
     """The candidate program: blocks of ``block_iters`` candidate
     iterations, each followed by a slice-fill rescue pass, until
-    ``i >= seg_end`` or every run is done."""
+    ``i >= seg_end`` or every run is done (``units`` runs the iterations
+    and fills, eagerly by default)."""
     cfg = cfg.resolved(state.u.shape[-1])
+    units = units or _Units(loglike2, cfg)
     block = max(1, cfg.block_iters)
-    s = state
+    s = units.enter(state, data)
     while _running(s, seg_end):
-        s = _segment_core(s, loglike2, data, cfg, min(s.i + block, seg_end))
-        s = ns_slice_fill(s, loglike2, data, cfg)
+        s = _segment_core(s, loglike2, data, cfg, min(s.i + block, seg_end),
+                          units)
+        s = ns_slice_fill(s, loglike2, data, cfg, units)
         count("ns.blocks")
     return s
 
@@ -1310,7 +1395,8 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 segment_iters, compact, active, shard=0, capture=True):
     """:func:`run_nested` on one device; ``shard`` is the dp row of a mesh
     run and ``capture=False`` keeps the traced blocks out of CUDA graphs
-    (``graphs.run_traced``)."""
+    (``graphs.run_traced``) and runs the segmented loop's units eagerly
+    on the run's own tensors (``graphs.SegmentedRun`` otherwise)."""
     cfg = config.resolved(ndim)
     loglike2 = _normalize_loglike(loglike, data)
     if cfg.log_zero > -1e60:
@@ -1326,7 +1412,22 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
         count("ns.iterations", state.i)
         with span("ns.finalize"):
             return ns_finalize(state, cfg)
+    if not capture:
+        return _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
+                              segment_iters, compact, active, _Units(
+                                  loglike2, cfg))
+    from nestfit_tpu_torch.sampling import graphs
 
+    with graphs.row_stream(gen.device, shard):
+        return _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
+                              segment_iters, compact, active,
+                              graphs.SegmentedRun(loglike2, cfg, shard, gen))
+
+
+def _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
+                   segment_iters, compact, active, units: _Units):
+    """The segmented host loop of :func:`_run_nested`, its units of work
+    run by ``units``.  ``cfg`` is resolved."""
     # ceff mode keeps rejection sampling alive by construction (the
     # adaptive shrink holds acceptance at its target): no regime switch
     auto = cfg.method == "auto" and not cfg.ceff
@@ -1368,7 +1469,7 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 with span("ns.compact", rows_from=r_cur, rows_to=tgt):
                     count("ns.compactions")
                     if acc is None:
-                        acc = _strip_bounds(state)
+                        acc = _strip_bounds(units.own(state))
                     else:
                         acc = _scatter_state(acc, state, orig_idx)
                     active_orig = orig_idx[active_rows]
@@ -1399,7 +1500,7 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 t0 = _debug_clock(state)
             with span("ns.segment", mode="cand", i0=i, R=r_cur) as seg:
                 state = ns_segment(state, loglike2, cur_data, cfg,
-                                   min(i + step, iter_cap))
+                                   min(i + step, iter_cap), units)
                 seg.set(i1=state.i)
             count("ns.segments")
             if _NS_DEBUG:
@@ -1451,7 +1552,7 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                 t0 = _debug_clock(state)
             with span("ns.segment", mode="slice", i0=i, R=r_cur) as seg:
                 state = ns_segment_slice(state, loglike2, cur_data, cfg,
-                                         min(i + step_s, iter_cap))
+                                         min(i + step_s, iter_cap), units)
                 seg.set(i1=state.i)
             count("ns.segments")
             if _NS_DEBUG:
@@ -1461,6 +1562,7 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
                       f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
 
     count("ns.iterations", state.i)
+    state = units.close(state)
     with span("ns.finalize"):
         if acc is not None:
             state = _scatter_state(acc, state, orig_idx)

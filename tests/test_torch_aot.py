@@ -92,7 +92,7 @@ def test_plan_tasks_and_keys():
 
 def test_jax_segmented_keywords_warn_and_traced_data_raises():
     runner = _runner()
-    with pytest.warns(UserWarning, match="r_classes, kinds_full.*eagerly"):
+    with pytest.warns(UserWarning, match="r_classes, kinds_full.*first use"):
         plan = aot.build_plan(runner, N_PIX, CFG, r_classes=[],
                               kinds_full=(), device="cpu")
     assert [t.name for t in plan] == ["warm@cpu"]

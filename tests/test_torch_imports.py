@@ -232,7 +232,11 @@ DEFAULTS = {
 }
 #: (module, function) -> more keywords the port adds: the JAX plan
 #: always prepares the segmented sampler, the port's either mode
-ADDED_TO = {("sampling/aot.py", "build_plan"): {"segment_iters"}}
+ADDED_TO = {("sampling/aot.py", "build_plan"): {"segment_iters"},
+            # the units of work a segmented run hands its segments (its
+            # CUDA graph programs, ``graphs.SegmentedRun``)
+            **{("sampling/sampler.py", f): {"units"} for f in (
+                "ns_segment", "ns_segment_slice", "ns_slice_fill")}}
 
 
 def test_every_jax_function_has_its_arguments_and_defaults():
