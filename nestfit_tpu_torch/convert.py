@@ -32,6 +32,8 @@ def _build(cls, fields: dict, device, skip=()):
     for f in dataclasses.fields(cls):
         if f.name in skip or not f.init:   # derived in __post_init__
             continue
+        if f.name not in fields and f.default is not dataclasses.MISSING:
+            continue                        # the port's own, defaulted
         v = fields[f.name]
         kw[f.name] = _tensor(v, device) if isinstance(v, np.ndarray) else v
     return kw

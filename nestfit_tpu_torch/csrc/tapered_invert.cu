@@ -6,8 +6,13 @@
 // grid interval [i_lo, i_hi) of [min(x_lo, x_hi), max(x_lo, x_hi)], forms
 // the tapered cumulative
 //   G(j) = sum_{i_lo < i <= j} trap_i ((i_hi - i)/span)^s,  s in {0, 1, 2}
-// from the cumulative index-moment tables t0/t1c/t2c (binomial in the
-// centred index ch = i_hi - center), normalises it by G(i_hi - 1), finds
+// as differences of the cumulative index-moment tables t0/t1c/t2c
+// (binomial in the centred index ch = i_hi - center), or, where the
+// interval starts past the median (-r0[i_lo] < t0[i_lo]), of the tail
+// tables r0/r1c/r2c (the same less their totals): near the right end t0
+// is close to its total and its float32 differences cancel, by up to ~4
+// cells of the float64 answer on the IRDC centroid prior, where the
+// tail tables' do not.  It normalises G by G(i_hi - 1), finds
 // the first cell j with G(j) >= u and interpolates linearly inside
 // [j-1, j].  The single-cell interval has its own case, and the "tiny"
 // guards follow the plain version.
@@ -17,9 +22,8 @@
 // rounded on its own: true division for (x - xmin) / dx, G / total and
 // dx / denom, and no contraction of a product into the following add
 // (the __f*_rn intrinsics; nvcc contracts a*b+c into an FMA otherwise,
-// and -fmad=false would take the FMAs of the other kernels too).  The
-// cumulative tables cancel for narrow intervals far from the centre, so
-// one ulp in G or one cell in i_lo moves the result by a table step;
+// and -fmad=false would take the FMAs of the other kernels too).  One
+// ulp in G or one cell in i_lo can move the result by a table step;
 // rounded alike, kernel and plain version agree bit for bit.  The
 // search is the plain version's fixed full-range lower-bound bisection
 // (ceil(log2 N) probes): a float32 G need not be monotone, and another
@@ -31,9 +35,10 @@
 // below the time any launch takes.  What is left is the latency of one
 // element's chain of ceil(log2 N) dependent probes, each a table read
 // and a comparison, so the design shortens the chain:
-// - The four tables are packed per cell as one float4 {t0, t1c, t2c,
-//   xax} (16 N bytes, built once per distribution and device): a probe
-//   reads one 16-byte row.
+// - The tables are packed per cell as two float4 rows {t0, t1c, t2c,
+//   xax} and {r0, r1c, r2c, xax} (32 N bytes, built once per
+//   distribution and device): an element picks its side once, and a
+//   probe reads one 16-byte row of it.
 // - Each block copies the packed table into shared memory, every
 //   thread's rows of it (and the element's inputs) in flight at once.
 //   Read through L1 instead, the probes past the bisection's first
@@ -62,13 +67,14 @@ constexpr int kStage = 4;   // table rows a thread copies at once
 template <int SF>
 struct Tapered {
   const float4* cells;   // the block's copy in shared memory
-  int i_lo, i_hi;
+  int i_lo, i_hi, side;  // side: 0 cumulative tables, 1 tail tables
   bool degen;
   float ch, t0_lo, t1_lo, t2_lo, total;
 
   // the table row G(j) reads: j clamped into [i_lo, i_hi - 1]
   __device__ float4 row(int j) const {
-    return cells[j < i_lo ? i_lo : (j > i_hi - 1 ? i_hi - 1 : j)];
+    const int c = j < i_lo ? i_lo : (j > i_hi - 1 ? i_hi - 1 : j);
+    return cells[2 * c + side];
   }
 
   // G(j) before normalisation, from its row c = row(j)
@@ -116,17 +122,18 @@ tapered_invert_kernel(const float4* __restrict__ cells_g,
   const float lo_in = live ? x_lo[e] : 0.0f;
   const float hi_in = live ? x_hi[e] : 0.0f;
   const float u_in = live ? u[e] : 1.0f;
-  for (int base = threadIdx.x; base < N; base += kStage * kThreads) {
+  const int rows = 2 * N;
+  for (int base = threadIdx.x; base < rows; base += kStage * kThreads) {
     float4 r[kStage];
 #pragma unroll
     for (int i = 0; i < kStage; ++i) {
       const int k = base + i * kThreads;
-      if (k < N) r[i] = __ldg(cells_g + k);
+      if (k < rows) r[i] = __ldg(cells_g + k);
     }
 #pragma unroll
     for (int i = 0; i < kStage; ++i) {
       const int k = base + i * kThreads;
-      if (k < N) cells[k] = r[i];
+      if (k < rows) cells[k] = r[i];
     }
   }
   __syncthreads();
@@ -145,7 +152,8 @@ tapered_invert_kernel(const float4* __restrict__ cells_g,
   g.i_hi = i_hi;
   g.degen = (i_hi - i_lo) == 1;
   g.ch = __fsub_rn(static_cast<float>(i_hi), center);
-  const float4 c_lo = cells[i_lo];
+  g.side = -cells[2 * i_lo + 1].x < cells[2 * i_lo].x ? 1 : 0;
+  const float4 c_lo = cells[2 * i_lo + g.side];
   g.t0_lo = c_lo.x;
   g.t1_lo = c_lo.y;
   g.t2_lo = c_lo.z;
@@ -171,15 +179,16 @@ tapered_invert_kernel(const float4* __restrict__ cells_g,
   const float y_lo = g.norm(ih - 1);
   const float y_hi = g.norm(ih);
   const float denom = fmaxf(__fsub_rn(y_hi, y_lo), kTiny);
-  out[e] = __fadd_rn(cells[ih - 1].w,
+  out[e] = __fadd_rn(cells[2 * (ih - 1)].w,
                      __fmul_rn(__fsub_rn(uu, y_lo), __fdiv_rn(dx, denom)));
 }
 
 }  // namespace
 
-// ``cells`` is the [N, 4] float32 table {t0, t1c, t2c, xax} per cell,
-// 16-byte aligned.  Launches on ``stream`` of card ``device``.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// ``cells`` is the [N, 2, 4] float32 table {t0, t1c, t2c, xax},
+// {r0, r1c, r2c, xax} per cell, 16-byte aligned.  Launches on ``stream``
+// of card ``device``.  Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int tapered_invert_launch(const void* cells, const float* u,
                                      const float* x_lo, const float* x_hi,
                                      float* out, long long B, int N,
@@ -192,12 +201,12 @@ extern "C" int tapered_invert_launch(const void* cells, const float* u,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   const long long blocks = (B + kThreads - 1) / kThreads;
-  // the table in shared memory: 16 N bytes, within the default 48 KB
-  if (N < 2 || N > 3072 || sfact < 0 || sfact > 2 ||
+  // the table in shared memory: 32 N bytes, within the default 48 KB
+  if (N < 2 || N > 1536 || sfact < 0 || sfact > 2 ||
       blocks > 0x7fffffffLL ||
       reinterpret_cast<size_t>(cells) % sizeof(float4) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float4) * static_cast<size_t>(N);
+  const size_t smem = 2 * sizeof(float4) * static_cast<size_t>(N);
   int n_probe = 0;
   while ((1 << n_probe) < N) ++n_probe;   // ceil(log2 N)
   const float4* c = static_cast<const float4*>(cells);

@@ -22,9 +22,9 @@ def __getattr__(name):
         from nestfit_tpu_torch.cube.store import HdfStore
 
         return HdfStore
-    from nestfit_tpu_torch import _PRODUCT_NAMES
+    from nestfit_tpu_torch import _LAZY
 
-    if name in _PRODUCT_NAMES:
+    if name in _LAZY["nestfit_tpu_torch.cube.products"]:
         from nestfit_tpu_torch.cube import products
 
         return getattr(products, name)

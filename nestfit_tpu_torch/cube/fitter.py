@@ -39,8 +39,8 @@ from nestfit_tpu_torch.sampling.fit import align_fit_meta, fit_batch, \
     merge_fit_rows
 from nestfit_tpu_torch.sampling.results import resolve_n_post
 from nestfit_tpu_torch.sampling.sampler import NSConfig
-from nestfit_tpu_torch.utils.profiling import collect, now_ns, span, \
-    to_host
+from nestfit_tpu_torch.utils.profiling import collect, count, now_ns, \
+    span, to_host
 
 log = logging.getLogger("nestfit_tpu_torch.fitter")
 
@@ -401,6 +401,11 @@ class CubeFitter:
             fit, lnz = self._refine_boundary(s_band, fit, lnz, prev, cur_ix,
                                              r_pad, ncomp, cfg, datas,
                                              noises, stats)
+        band = stats["boundary"]
+        for kind, rows in (
+                ("mode_loss", sum(a["rows"] for a in stats["retries"])),
+                ("boundary", band["rows"] if band else 0)):
+            count("cube.refit_rows", rows, kind=kind)
         stats["total_wall"] = rung.seconds
         return fit, lnz, prev, stats
 

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from nestfit_tpu_torch.sampling.results import MARGINAL_COLS, QUANTILES
-from nestfit_tpu_torch.utils.profiling import to_host
+from nestfit_tpu_torch.utils.profiling import count, to_host
 
 _ICS = ("BIC", "AIC", "AICc", "null_BIC", "null_AIC", "null_AICc")
 
@@ -22,7 +22,9 @@ def fit_group_records(fit, rows):
     """Records of run rows ``rows`` of the batched ``FitResult`` ``fit``.
 
     Each leaf goes to the host once for all ``rows`` (one ``.cpu()`` a
-    leaf, not one a pixel).
+    leaf, the integer leaves in one, not one a pixel).  The resampling
+    positions the posterior products moved off a slot of zero weight
+    (``resample_clamped``) add to the counter ``fit.resample_clamped``.
     """
     rows = np.asarray(rows, dtype=np.int64)
     idx = torch.as_tensor(rows, device=fit.lnz.device)
@@ -33,8 +35,16 @@ def fit_group_records(fit, rows):
     ns, prod = fit.ns, fit.products
     null, lnz, lnz_err, max_ll = (host(x) for x in (
         fit.null_lnz, ns.lnz, ns.lnz_err, ns.max_loglike))
-    n_samples, ncall, conv = (host(x) for x in (
-        ns.n_samples, ns.ncall, ns.converged))
+    # the integer leaves in one read, the resampling guard's count with
+    # them (products carried across from the JAX package have none)
+    ints = [ns.n_samples, ns.ncall]
+    if prod.resample_clamped is not None:
+        ints.append(prod.resample_clamped)
+    n_samples, ncall, *clamped = host(torch.stack(
+        [x.to(torch.int64) for x in ints], dim=1)).T
+    if clamped:
+        count("fit.resample_clamped", int(clamped[0].sum()))
+    conv = host(ns.converged)
     ics = {k: host(fit.ics[k]) for k in _ICS}
     post = host(prod.posteriors)
     marg, best, mapp = (host(x) for x in (

@@ -72,7 +72,9 @@ table_lerp.launches = 0
 def tapered_invert_plain(dist, u, x_lo, x_hi, sfact: int):
     """Plain version of :func:`tapered_invert`: the port of the jnp
     ``tapered_interval_invert`` body (gathers from the moment tables and
-    a fixed-depth lower-bound bisection).
+    a fixed-depth lower-bound bisection), differencing the tail tables
+    ``r0``/``r1c``/``r2c`` where the interval starts past the median
+    (``-r0[i_lo] < t0[i_lo]``), the cumulative ones elsewhere.
 
     Each division is a true division by a tensor: PyTorch divides a CUDA
     tensor by a Python float as a product with its rounded reciprocal,
@@ -81,8 +83,8 @@ def tapered_invert_plain(dist, u, x_lo, x_hi, sfact: int):
     ``(x - xmin) / dx`` can move the interval by a grid cell."""
     s = int(sfact)
     size, xmin, center, dx = dist.size, dist.xmin, dist.center, dist.dx_t
-    t0, t1c, t2c, xax = dist.t0, dist.t1c, dist.t2c, dist.xax
-    dtype = t0.dtype
+    xax = dist.xax
+    dtype = xax.dtype
     lo = torch.minimum(x_lo, x_hi)
     hi = torch.maximum(x_lo, x_hi)
     tiny = 1e-30
@@ -92,19 +94,27 @@ def tapered_invert_plain(dist, u, x_lo, x_hi, sfact: int):
     i_hi = torch.clamp(i_hi, 1, size)
     degenerate = (i_hi - i_lo) == 1
     ch = i_hi.to(dtype) - center
-    t0_lo = t0[i_lo]
-    t1_lo = t1c[i_lo] if s >= 1 else None
-    t2_lo = t2c[i_lo] if s >= 2 else None
+    tail = -dist.r0[i_lo] < dist.t0[i_lo]
+
+    def table(k, j):
+        """Moment table ``k`` (0, 1, 2) at cells ``j``, on the side each
+        element differences."""
+        return torch.where(tail, (dist.r0, dist.r1c, dist.r2c)[k][j],
+                           (dist.t0, dist.t1c, dist.t2c)[k][j])
+
+    t0_lo = table(0, i_lo)
+    t1_lo = table(1, i_lo) if s >= 1 else None
+    t2_lo = table(2, i_lo) if s >= 2 else None
 
     def g_raw(j):
         jj = torch.minimum(torch.maximum(j, i_lo), i_hi - 1)
-        d0 = t0[jj] - t0_lo
+        d0 = table(0, jj) - t0_lo
         if s == 0:
             return d0
-        d1 = t1c[jj] - t1_lo
+        d1 = table(1, jj) - t1_lo
         if s == 1:
             return ch * d0 - d1
-        d2 = t2c[jj] - t2_lo
+        d2 = table(2, jj) - t2_lo
         return ch * ch * d0 - 2.0 * ch * d1 + d2
 
     total = torch.clamp(g_raw(i_hi - 1), min=tiny)
@@ -134,7 +144,8 @@ def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
     """Invert the power-law-tapered interval CDF of ``dist`` (a
     ``priors.distributions.Distribution``) over ``[x_lo, x_hi]`` at
     ``u`` (``u``/``x_lo``/``x_hi`` of one shape; ``sfact`` in 0, 1, 2).
-    The kernel reads the distribution's packed ``cells`` table."""
+    The kernel reads the distribution's packed ``cells`` table, both
+    sides of it."""
     s = int(sfact)
     if not 0 <= s <= 2:
         raise ValueError("tapered_invert supports sfact in (0, 1, 2)")
@@ -145,9 +156,9 @@ def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
     _check("tapered_invert", dev, [("cells", cells), ("u", u),
                                    ("x_lo", x_lo), ("x_hi", x_hi)])
     if x_lo.shape != u.shape or x_hi.shape != u.shape \
-            or cells.shape != (dist.size, 4):
+            or cells.shape != (dist.size, 2, 4):
         raise ValueError("tapered_invert: u/x_lo/x_hi must share a shape "
-                         f"and the cells table be [{dist.size}, 4]")
+                         f"and the cells table be [{dist.size}, 2, 4]")
     out = torch.empty_like(u)
     fn = _build.function(TAPER_SOURCE, "tapered_invert_launch",
                          _TAPER_ARGS)

@@ -29,10 +29,13 @@ class Distribution:
     interval inversion reads.
 
     Derived on the tables' device when the distribution is made (and
-    again by :meth:`to`): ``cells``, the ``[N, 4]`` table
-    ``{t0, t1c, t2c, xax}`` per grid cell that K3 reads one 16-byte row
-    at a time, and ``dx_t``, ``dx`` as a 0-dim tensor, the divisor of
-    the plain tapered inversion."""
+    again by :meth:`to`): ``r0``/``r1c``/``r2c``, the same cumulative
+    tables less their totals (summed in float64 from ``pdf``, then
+    rounded), small in the right tail where ``t0`` is close to its total
+    and the differences of ``t0`` cancel; ``cells``, the ``[N, 2, 4]``
+    table ``{t0, t1c, t2c, xax}, {r0, r1c, r2c, xax}`` per grid cell that
+    K3 reads one 16-byte row at a time; and ``dx_t``, ``dx`` as a 0-dim
+    tensor, the divisor of the plain tapered inversion."""
 
     xax: torch.Tensor
     pdf: torch.Tensor
@@ -46,11 +49,21 @@ class Distribution:
     du: float
     xmin: float
     xmax: float
+    r0: torch.Tensor = dataclasses.field(init=False, repr=False)
+    r1c: torch.Tensor = dataclasses.field(init=False, repr=False)
+    r2c: torch.Tensor = dataclasses.field(init=False, repr=False)
     cells: torch.Tensor = dataclasses.field(init=False, repr=False)
     dx_t: torch.Tensor = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
-        cells = torch.stack([self.t0, self.t1c, self.t2c, self.xax], dim=-1)
+        for name, table in zip(("r0", "r1c", "r2c"), _tail_tables(
+                self.pdf.detach().cpu().double().numpy())):
+            object.__setattr__(self, name, torch.as_tensor(
+                table, dtype=self.t0.dtype, device=self.t0.device))
+        cells = torch.stack([
+            torch.stack([self.t0, self.t1c, self.t2c, self.xax], dim=-1),
+            torch.stack([self.r0, self.r1c, self.r2c, self.xax], dim=-1)],
+            dim=1)
         object.__setattr__(self, "cells", cells.contiguous())
         object.__setattr__(self, "dx_t", torch.tensor(
             self.dx, dtype=self.t0.dtype, device=self.t0.device))
@@ -68,6 +81,22 @@ class Distribution:
         return dataclasses.replace(self, **{
             f: getattr(self, f).to(device)
             for f in ("xax", "pdf", "cdf", "ppf", "t0", "t1c", "t2c")})
+
+
+def _moment_weights(pdf):
+    """The trapezoid weights of ``pdf`` (the first zero) and their first
+    and second moments about the grid's middle index, in float64."""
+    trap = 0.5 * (pdf + np.roll(pdf, 1))
+    trap[0] = 0.0
+    ic = np.arange(pdf.shape[0]) - (pdf.shape[0] - 1) / 2.0
+    return trap, trap * ic, trap * ic * ic
+
+
+def _tail_tables(pdf):
+    """``r0``/``r1c``/``r2c``: the cumulative moment tables less their
+    totals, that is minus the sums to the right of each cell."""
+    return [-np.append(np.cumsum(w[:0:-1])[::-1], 0.0)
+            for w in _moment_weights(pdf)]
 
 
 def make_distribution(xax, pdf, dtype=torch.float32,
@@ -88,11 +117,9 @@ def make_distribution(xax, pdf, dtype=torch.float32,
     inv_cdf = interpolate.UnivariateSpline(eps_cdf, xax, k=3, s=0)
     u = np.linspace(0, 1, size)
     ppf = inv_cdf(u)
-    trap = 0.5 * (pdf + np.roll(pdf, 1))
-    trap[0] = 0.0
-    ic = np.arange(size) - (size - 1) / 2.0
-    tables = dict(xax=xax, pdf=pdf, cdf=cdf, ppf=ppf, t0=np.cumsum(trap),
-                  t1c=np.cumsum(trap * ic), t2c=np.cumsum(trap * ic * ic))
+    t0, t1c, t2c = (np.cumsum(w) for w in _moment_weights(pdf))
+    tables = dict(xax=xax, pdf=pdf, cdf=cdf, ppf=ppf, t0=t0, t1c=t1c,
+                  t2c=t2c)
     return Distribution(
         **{k: torch.as_tensor(v, dtype=dtype, device=dev)
            for k, v in tables.items()},
@@ -179,10 +206,13 @@ def tapered_interval_invert(dist: Distribution, u, x_lo, x_hi, sfact: int,
                             plain: bool = False):
     """Invert the tapered interval CDF at ``u`` in O(1) memory per
     element (``sfact`` in 0, 1, 2); the same quantity as
-    ``cdf_interp(cdf_over_interval(dist, x_lo, x_hi, sfact), u)``.  As
-    in the JAX package, the float32 cumulative moment tables limit the
-    result to ~2.5 grid cells of the float64 answer for narrow intervals
-    far from the grid centre."""
+    ``cdf_interp(cdf_over_interval(dist, x_lo, x_hi, sfact), u)``.  An
+    interval that starts past the distribution's median differences the
+    tail tables ``r0``/``r1c``/``r2c``, any other the cumulative ones:
+    the JAX package differences the cumulative ones alone, which cancel
+    in float32 for narrow intervals in the right tail (up to ~4 grid
+    cells from the float64 answer on the IRDC centroid prior; here
+    within one cell)."""
     shape = torch.broadcast_shapes(u.shape, x_lo.shape, x_hi.shape)
     args = [torch.broadcast_to(x, shape).contiguous() for x in (u, x_lo, x_hi)]
     fn = table_ops.tapered_invert_plain if plain \

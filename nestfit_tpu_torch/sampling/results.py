@@ -47,6 +47,10 @@ class PosteriorProducts:
     map_params: torch.Tensor       # [R, D]
     mean_params: torch.Tensor      # [R, D]
     std_params: torch.Tensor       # [R, D]
+    # [R] resampling positions moved off a slot of zero weight (None for
+    # products carried across from the JAX package, which has no such
+    # guard)
+    resample_clamped: torch.Tensor = None
 
 
 def _chunked_transform(transform, u_all, chunk=256):
@@ -137,6 +141,16 @@ def _products_rows(result, rows, transform, jitter, n_post, quantiles):
            + jitter) / n_post
     take = torch.clamp(torch.searchsorted(cw.contiguous(), pos), 0,
                        cw.shape[1] - 1)
+    # the float32 sum of the weights can end below the last position (and
+    # a zero jitter puts the first at 0): keep every draw between the
+    # first and the last slot of nonzero weight
+    slots = torch.arange(w.shape[1], device=w.device)
+    heavy = w > 0
+    first = torch.amin(torch.where(heavy, slots, w.shape[1] - 1), dim=1,
+                       keepdim=True)
+    last = torch.amax(torch.where(heavy, slots, 0), dim=1, keepdim=True)
+    moved = (take < first) | (take > last)
+    take = torch.minimum(torch.maximum(take, first), last)
     theta_post = torch.gather(theta_all, 1, take[..., None].expand(-1, -1, D))
     posteriors = torch.cat([
         theta_post,
@@ -157,6 +171,7 @@ def _products_rows(result, rows, transform, jitter, n_post, quantiles):
         map_params=pick(torch.argmax(lnp, dim=1)),
         mean_params=mean,
         std_params=torch.sqrt(var),
+        resample_clamped=torch.sum(moved, dim=1, dtype=torch.int32),
     )
 
 

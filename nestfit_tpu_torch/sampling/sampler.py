@@ -1184,13 +1184,20 @@ def ns_finalize(state: _State, cfg: NSConfig) -> NSResult:
     live_lnw = torch.where(state.zombie, _NEG, live_lnw)
     live_lnl_s = torch.where(state.zombie, _NEG, state.lnl)
 
-    all_lnwl = torch.cat([dead_lnw + dead_lnl_s, live_lnw + live_lnl_s],
-                         dim=1)
-    lnz_s = torch.logsumexp(all_lnwl, dim=1)
+    all_lnw = torch.cat([dead_lnw, live_lnw], dim=1)
     all_lnl = torch.cat([dead_lnl_s, live_lnl_s], dim=1)
-    p = torch.exp(all_lnwl - lnz_s[:, None])
-    h = torch.sum(torch.where(all_lnl > _NEG / 2, p * all_lnl, 0.0),
-                  dim=1) - lnz_s
+    lnz_s = torch.logsumexp(all_lnw + all_lnl, dim=1)
+    # H = sum(p * (lnl - lnZ)) on terms shifted by each run's best point:
+    # a bright posterior lies 1e4-1e5 nats above ``shift``, where
+    # sum(p * lnl_s) - lnz_s cancels in float32, and so do the rounded
+    # sums lnw + lnl_s that p would be taken from
+    keep = all_lnl > _NEG / 2
+    lnl_t = torch.where(keep, all_lnl - torch.amax(all_lnl, dim=1,
+                                                   keepdim=True), _NEG)
+    lnwl_t = all_lnw + lnl_t
+    lnz_t = torch.logsumexp(lnwl_t, dim=1, keepdim=True)
+    h = torch.sum(torch.where(keep, torch.exp(lnwl_t - lnz_t)
+                              * (lnl_t - lnz_t), 0.0), dim=1)
     # var(lnZ) ~ H * <d>, <d> = -lnX(n_dead) / n_dead (see the JAX package)
     mean_d = -lnx_tab[nd] / torch.clamp(n_dead, min=1).to(dtype)
     lnz_err = torch.sqrt(torch.clamp(h, min=0.0) * mean_d)

@@ -6,7 +6,8 @@ The recorder times the cube ladder, the fit orchestration and the
 sampler from where their work happens:
 
 - ``span(name, **attrs)``: a context manager, one timed range;
-- ``count(name, n=1)``: add to a counter;
+- ``count(name, n=1, **attrs)``: add to a counter (and to its share
+  under the attributes ``attrs``);
 - ``to_host(x, site)``: read a device tensor on the host (a NumPy
   array), counting the read under ``site`` and adding the time the host
   waited in it (the launch queue drains first);
@@ -52,11 +53,14 @@ class Trace:
 
     ``spans``: ``(name, t0_ns, t1_ns, depth, attrs)`` in start order
     (``depth`` 0 is outermost within the block); ``counters``: name ->
-    total; ``syncs``: site -> ``(count, wait_ns)`` of the host reads."""
+    total; ``tagged``: ``(name, ((attr, value), ...))`` -> the share of
+    that total counted with those attributes; ``syncs``: site ->
+    ``(count, wait_ns)`` of the host reads."""
 
     def __init__(self):
         self.spans = []
         self.counters = {}
+        self.tagged = {}
         self.syncs = {}
         self._depth = 0
 
@@ -67,6 +71,8 @@ class Trace:
                           for n, t0, t1, depth, a in inner.spans)
         for k, v in inner.counters.items():
             self.counters[k] = self.counters.get(k, 0) + v
+        for k, v in inner.tagged.items():
+            self.tagged[k] = self.tagged.get(k, 0) + v
         for k, (c, w) in inner.syncs.items():
             c0, w0 = self.syncs.get(k, (0, 0))
             self.syncs[k] = (c0 + c, w0 + w)
@@ -124,11 +130,15 @@ def span(name: str, /, **attrs):
     return _Span(_local.trace, name, attrs)
 
 
-def count(name: str, n=1):
-    """Add ``n`` to the counter ``name``."""
+def count(name: str, n=1, /, **attrs):
+    """Add ``n`` to the counter ``name``, and with ``attrs`` to its share
+    under those attributes (``Trace.tagged``)."""
     tr = _local.trace
     if tr is not None:
         tr.counters[name] = tr.counters.get(name, 0) + n
+        if attrs:
+            key = (name, tuple(sorted(attrs.items())))
+            tr.tagged[key] = tr.tagged.get(key, 0) + n
 
 
 def to_host(x: torch.Tensor, site: str):

@@ -10,9 +10,10 @@ divides.  The file shows that it equals ``tapered_invert_plain`` bit
 for bit (the card's bar), that the probe goes where the dividing one
 goes, that it stays within half a grid cell of JAX, and that the bar
 can tell a contracted or reciprocal-based variant apart: the cumulative
-moment tables cancel for narrow intervals far from the grid centre, so
-an ulp in G or in ``(x - xmin) / dx`` moves the result by up to a table
-step.
+moment tables cancel for narrow intervals far from the grid centre
+(the JAX package's within the right tail too, where the kernel takes
+the tail tables and is held to a float64 inversion instead), so an ulp
+in G or in ``(x - xmin) / dx`` moves the result by up to a table step.
 JAX runs its Pallas kernel in interpret mode, as its own tests run it.
 """
 
@@ -77,10 +78,12 @@ def k3_emulated(dist, u, x_lo, x_hi, sfact, contract=False,
     i_hi = np.clip(i_hi, 1, N)
     degen = (i_hi - i_lo) == 1
     ch = i_hi.astype(F32) - center
-    c_lo = cells[i_lo]
+    # the tail tables where the interval starts past the median
+    side = (-cells[i_lo, 1, 0] < cells[i_lo, 0, 0]).astype(np.int64)
+    c_lo = cells[i_lo, side]
 
     def raw(j):
-        c = cells[np.clip(j, i_lo, i_hi - 1)]
+        c = cells[np.clip(j, i_lo, i_hi - 1), side]
         d0 = c[:, 0] - c_lo[:, 0]
         if sfact == 0:
             return d0
@@ -117,7 +120,7 @@ def k3_emulated(dist, u, x_lo, x_hi, sfact, contract=False,
     ih = np.clip(lo_j, 1, N - 1)
     y_lo = norm(ih - 1)
     q = div(dx, np.maximum(norm(ih) - y_lo, TINY))
-    x_left = cells[ih - 1, 3]
+    x_left = cells[ih - 1, 0, 3]
     with np.errstate(over="ignore"):   # inf where the plain gives inf
         if contract:
             out = (x_left + (uu - y_lo).astype(np.float64) * q).astype(F32)
@@ -125,7 +128,7 @@ def k3_emulated(dist, u, x_lo, x_hi, sfact, contract=False,
             out = x_left + (uu - y_lo) * q
     assert out.dtype == F32
     return types.SimpleNamespace(out=out, i_lo=i_lo, i_hi=i_hi, cell=ih,
-                                 norm=norm)
+                                 norm=norm, tail=side == 1)
 
 
 def _grid(kind):
@@ -163,16 +166,43 @@ def _monotone(res, N):
     return np.all(np.diff(g, axis=0) >= 0, axis=0)
 
 
+def _float64_invert(pdf, res, u, sfact, xax, dx):
+    """The tapered inversion in float64 on the grid cells ``res.i_lo``,
+    ``res.i_hi`` of a float32 run: G(j) summed cell by cell, then the
+    same lower bound and linear step."""
+    trap = 0.5 * (pdf + np.roll(pdf, 1))
+    trap[0] = 0.0
+    N = pdf.size
+    j = np.arange(N)[None, :]
+    lo, hi = res.i_lo[:, None], res.i_hi[:, None]
+    inside = (j > lo) & (j < hi)
+    w = np.where(inside, trap * np.clip(hi - j, 0, None) ** sfact, 0.0)
+    g = np.cumsum(w, axis=1)
+    g = g / np.maximum(g[:, -1:], 1e-300)
+    g = np.where(j >= hi, 1.0, np.where(j < lo, 0.0, g))
+    g = np.where((hi - lo == 1) & (j >= lo), 1.0, g)
+    uu = np.maximum(u.astype(np.float64), 1e-30)
+    ih = np.clip(np.sum(g < uu[:, None], axis=1), 1, N - 1)
+    y_lo = g[np.arange(u.size), ih - 1]
+    y_hi = g[np.arange(u.size), ih]
+    return xax[ih - 1] + (uu - y_lo) * dx / np.maximum(y_hi - y_lo, 1e-30)
+
+
 @pytest.mark.parametrize("sfact", [0, 1, 2])
 def test_k3_arithmetic_within_half_a_cell_of_jax(sfact):
     """Against JAX's eager jnp path (the same bisection) on every
-    element.  Against its jitted Pallas kernel wherever the float32 G
-    is monotone: there the kernel's dense count finds the bisection's
-    cell.  XLA rewrites a division by a constant as a product with its
-    reciprocal, so on elements whose cells the two divisions set apart
-    the Pallas kernel is held against the reciprocal variant.  Where G
-    is not monotone (narrow intervals at the grid's thin end, whose
-    cumulative tables cancel to noise), JAX's own two paths part too."""
+    element whose interval starts before the median, where the kernel
+    differences the cumulative tables as JAX does; past the median it
+    differences the tail tables, and JAX's cumulative ones cancel in the
+    right tail, so there the kernel is held to the float64 inversion on
+    the same cells instead (save at ``u`` within 2^-20 of 1, which a
+    float32 G does not resolve).  Against JAX's jitted Pallas kernel
+    wherever the float32 G is monotone: there the kernel's dense count
+    finds the bisection's cell.  XLA rewrites a division by
+    a constant as a product with its reciprocal, so on elements whose
+    cells the two divisions set apart the Pallas kernel is held against
+    the reciprocal variant.  Where G is not monotone, JAX's own two
+    paths part too."""
     x, pdf = _grid("beta")
     dist = make_distribution(x, pdf, device="cpu")
     jd = jax_dists.make_distribution(x, pdf, dtype=jnp.float32)
@@ -186,14 +216,20 @@ def test_k3_arithmetic_within_half_a_cell_of_jax(sfact):
         jd.t0, jd.t1c, jd.t2c, jd.xax, ju, jlo, jhi, sfact, jd.size,
         jd.xmin, jd.dx, jd.center))
     bar = 0.51 * dist.dx
-    np.testing.assert_allclose(got.out, jnp_path, atol=bar, rtol=0)
+    exact = _float64_invert(pdf, got, u, sfact, x, dist.dx)
+    ok = ~got.tail
+    held = got.tail & (u < 1 - 2.0 ** -20)
+    assert 0.2 < got.tail.mean() < 0.5
+    np.testing.assert_allclose(got.out[held], exact[held], atol=bar, rtol=0)
+    assert not (np.abs(jnp_path - exact) <= bar)[held].all()
+    np.testing.assert_allclose(got.out[ok], jnp_path[ok], atol=bar, rtol=0)
     same = (got.i_lo == recip.i_lo) & (got.i_hi == recip.i_hi)
     near = np.abs(np.where(same, got.out, recip.out) - pallas) <= bar
     monotone = _monotone(got, dist.size) & _monotone(recip, dist.size)
-    assert near[monotone].all()
-    assert near.mean() > 0.97
+    assert near[monotone & ok].all()
+    assert near[ok].mean() > 0.97
     jax_paths_part = ~(np.abs(jnp_path - pallas) <= bar)
-    assert (near | jax_paths_part).all()
+    assert (near | jax_paths_part)[ok].all()
 
 
 @pytest.mark.parametrize("kind", ["beta", "flat"])

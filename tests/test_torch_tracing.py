@@ -41,6 +41,21 @@ def test_spans_nest_with_attributes_and_counters():
     assert tr.counters == {"n": 4, "m": 2}
 
 
+def test_counters_keep_their_share_by_attributes():
+    with prof.collect() as outer:
+        prof.count("rows", 5, kind="a")
+        with prof.collect() as inner:
+            prof.count("rows", 2, kind="b")
+            prof.count("rows", 1, kind="a")
+            prof.count("rows", 4)
+    assert inner.counters == {"rows": 7}
+    assert inner.tagged == {("rows", (("kind", "a"),)): 1,
+                            ("rows", (("kind", "b"),)): 2}
+    assert outer.counters == {"rows": 12}
+    assert outer.tagged == {("rows", (("kind", "a"),)): 6,
+                            ("rows", (("kind", "b"),)): 2}
+
+
 def test_host_reads_are_counted_by_site():
     x = torch.arange(6.0)
     with prof.collect() as tr:
@@ -189,3 +204,17 @@ def test_batch_trace_counts_the_samplers_reads_and_iterations(batch):
     assert tr.counters["ns.blocks"] >= tr.counters["ns.segments"] \
         - sum(1 for *_x, a in _spans(tr, "ns.segment") if a["mode"]
               == "slice")
+
+
+def test_batch_trace_counts_the_refit_rows_by_kind(batch):
+    """``cube.refit_rows``: the rows of every mode-loss retry and
+    boundary refit of the batch's rungs, split by ``kind``; the records'
+    copy counts the resampling guard's moves (none on these rows)."""
+    tr = batch.trace
+    retry = sum(a["rows"] for r in batch.rungs for a in r["retries"])
+    band = sum(r["boundary"]["rows"] for r in batch.rungs if r["boundary"])
+    assert band > 0
+    assert tr.counters["cube.refit_rows"] == retry + band
+    assert tr.tagged[("cube.refit_rows", (("kind", "mode_loss"),))] == retry
+    assert tr.tagged[("cube.refit_rows", (("kind", "boundary"),))] == band
+    assert tr.counters["fit.resample_clamped"] >= 0
