@@ -748,7 +748,7 @@ def card_line() -> str:
 def kernel_counters():
     from nestfit_tpu_torch.ops import fused, tables
 
-    return {"hf_chi2_fused": fused.hf_chi2_fused,
+    return {"hf_lnl_fused": fused.hf_lnl_fused,
             "table_lerp": tables.table_lerp,
             "tapered_invert": tables.tapered_invert}
 

@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero:
                registers and spills.
 3. kernels  -- hold K1 ``hf_chi2_fused`` (NH3 at B = 51,200 and at the
                compacted B = 3,200, and N2H+ (1-0) and (3-2): 15 and 45
-               lines) and K4 ``gauss_chi2_fused`` against their plain
+               lines), K1's one-launch likelihood ``hf_lnl_fused`` (NH3
+               (1,1)+(2,2) at both widths, also against the runner's
+               two-launch path, and timed against it) and K4
+               ``gauss_chi2_fused`` against their plain
                PyTorch versions on the same CUDA tensors at main-path
                shapes, K2 ``table_lerp`` and K3 ``tapered_invert`` bit for
                bit (K3 at B = 3,200, 51,200 and 102,400 on what the IRDC
@@ -442,6 +445,19 @@ def k1_bound(B, C, R, S, nhf, n_sm, clock_hz):
             "operations" if t_ops >= t_mem else "bytes", n_exp)
 
 
+def split_lnl(runner, theta):
+    """The runner's two-launch likelihood of flat rows ``theta``: the
+    model's prep ops, a K1 ``hf_chi2_fused`` launch a transition and the
+    scaling by ``1 / (2 sigma^2)``, as a runner that cannot take the
+    one-launch entry runs it."""
+    cls = type(runner)
+    cls.one_launch = False
+    try:
+        return runner._log_likelihood(theta, fused=True)
+    finally:
+        del cls.one_launch
+
+
 def phase_kernels(seed, n_sm, clock_hz):
     """Hold each kernel against its plain version; returns the kernel
     records of the JSON line (without their launch counts)."""
@@ -501,6 +517,48 @@ def phase_kernels(seed, n_sm, clock_hz):
               f"{bound_ms:.4f} ms ({n_exp:.3e} exp at {clock_hz / 1e6:.0f} "
               f"MHz, {bound_by})", flush=True)
     records["hf_chi2_fused"] = rec
+
+    # ---- K1's one-launch likelihood on the same ncomp-2 proposals (both
+    # transitions): against its plain version and the runner's two-launch
+    # path (the model's prep ops, a K1 launch a transition, the scaling),
+    # and timed against that path
+    rec = dict(name="hf_lnl_fused", route="cuda",
+               source="nestfit_tpu_torch/csrc/hf_chi2.cu",
+               replaces="nestfit_tpu/models/runner.py:113 (every "
+                        "transition's hf_chi2_fused and the ops around them)",
+               library_ms=None)
+    worst = 0.0
+    for rows, suffix in ((R, ""), (K1_COMPACT_ROWS, "_compacted")):
+        sub = runner.with_data(tuple(
+            (d[:rows], n[:rows] if n.ndim else n)
+            for d, n in runner.data_tree()))
+        th = flat.reshape(T, R, -1)[:, :rows].reshape(T * rows, -1) \
+            .contiguous()
+        got = fused.hf_lnl_fused(ammonia.lnl_model(), sub.spectra, th)
+        worst = max(worst, check_close(
+            f"K1 hf_lnl_fused ncomp=2 B={T * rows}", got,
+            fused.hf_lnl_plain(ammonia.lnl_model(), sub.spectra, th),
+            atol=1e-3))
+        check_close(f"K1 hf_lnl_fused ncomp=2 B={T * rows} against the "
+                    "two-launch path", got, split_lnl(sub, th), atol=1e-3)
+        ms, call = time_ms(lambda: sub.model.fused_lnl(sub.spectra, th), 20)
+        split_ms, split_call = time_ms(lambda: split_lnl(sub, th), 20)
+        plain_ms, _ = time_ms(lambda: fused.hf_lnl_plain(
+            ammonia.lnl_model(), sub.spectra, th), 3, warmup=1)
+        bound = [k1_bound(T * rows, 2, rows, S, spec_nhf, n_sm, clock_hz)
+                 for spec_nhf in (18, 21)]
+        bound_ms = sum(b[0] for b in bound)
+        rec.update({f"ms{suffix}": ms, f"call_ms{suffix}": call,
+                    f"split_ms{suffix}": split_ms,
+                    f"split_call_ms{suffix}": split_call,
+                    f"plain_ms{suffix}": plain_ms,
+                    f"bound_ms{suffix}": bound_ms})
+        print(f"K1 one-launch timing (ncomp=2, (1,1)+(2,2), B={T * rows}): "
+              f"kernel {ms:.4f} ms (per call {call:.4f} ms), two-launch path "
+              f"{split_ms:.4f} ms (per call {split_call:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
+    rec.update(max_abs_err=worst, bound_by="operations")
+    records["hf_lnl_fused"] = rec
 
     # ---- K2: the trot PPF (N = 500) at ~1e6 positions, plus endpoints
     dist = utrans.priors[1].dist
@@ -662,6 +720,25 @@ def phase_kernels(seed, n_sm, clock_hz):
         check_close(f"K1 hf_chi2_fused N2H+ trans={tid} ({trans.nhf} lines) "
                     f"ncomp=2 B={T * R}", fused.hf_chi2_fused(*args),
                     fused.hf_chi2_plain(*args), atol=1e-3)
+        if tid == 1:
+            # the N2H+ cell's likelihood: one transition, one launch
+            # against the prep op, a K1 launch and the scaling
+            runner = make_n2hp_runner([(tid, xa, d)], 2, n_utrans)
+            got = runner.model.fused_lnl(runner.spectra, theta)
+            check_close(f"K1 hf_lnl_fused N2H+ trans=1 ncomp=2 B={T * R}",
+                        got, fused.hf_lnl_plain(diazenylium.lnl_model(),
+                                                runner.spectra, theta),
+                        atol=1e-3)
+            ms, call = time_ms(
+                lambda: runner.model.fused_lnl(runner.spectra, theta), 20)
+            split_ms, split_call = time_ms(
+                lambda: split_lnl(runner, theta), 20)
+            records["hf_lnl_fused"].update(ms_n2hp=ms,
+                                           split_ms_n2hp=split_ms)
+            print(f"K1 one-launch timing (N2H+ (1-0), ncomp=2, B={T * R}): "
+                  f"kernel {ms:.4f} ms (per call {call:.4f} ms), two-launch "
+                  f"path {split_ms:.4f} ms (per call {split_call:.4f} ms)",
+                  flush=True)
     return records
 
 
@@ -864,8 +941,8 @@ def phase_ladder(seed, n_pix, counters, keep=None):
     lnz, launches, errs = run_ladder(
         "ladder", lambda ncomp: make_runner(
             (xa11, xa22), (d11, d22), noise, ncomp, utrans),
-        n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
-        ["gauss_chi2_fused"])
+        n_pix, seed, counters, ["hf_lnl_fused", "table_lerp"],
+        ["gauss_chi2_fused", "hf_chi2_fused"])
     gain = lnz[2] - lnz[1]
     print(f"ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
           f"{n_pix} two-component truth pixels", flush=True)
@@ -887,7 +964,7 @@ def phase_gauss_ladder(seed, n_pix, counters):
         "gauss ladder", lambda ncomp: make_gauss_runner(
             xarr, rest, data, ncomp, utrans),
         n_pix, seed, counters, ["gauss_chi2_fused", "table_lerp"],
-        ["hf_chi2_fused"])
+        ["hf_chi2_fused", "hf_lnl_fused"])
     gain = lnz[2] - lnz[1]
     g1, g2 = np.median(gain[truth == 1]), np.median(gain[truth == 2])
     keep = gain > 11.0
@@ -914,8 +991,8 @@ def phase_n2hp_ladder(seed, n_pix, counters):
     lnz, launches, _ = run_ladder(
         "n2h+ ladder", lambda ncomp: make_n2hp_runner(
             [(1, xarr, data)], ncomp, utrans),
-        n_pix, seed, counters, ["hf_chi2_fused", "table_lerp"],
-        ["gauss_chi2_fused"])
+        n_pix, seed, counters, ["hf_lnl_fused", "table_lerp"],
+        ["gauss_chi2_fused", "hf_chi2_fused"])
     gain = lnz[2] - lnz[1]
     print(f"n2h+ ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
           f"{n_pix} two-component truth pixels", flush=True)
@@ -998,11 +1075,12 @@ def phase_traced(seed, counters, ladder, keep=None):
     runs, fits = [], {}
     for ncomp in (1, 2):
         label = f"traced rung ncomp={ncomp} R={n_pix}"
-        need = ["hf_chi2_fused", "table_lerp"] \
+        need = ["hf_lnl_fused", "table_lerp"] \
             + (["tapered_invert"] if ncomp == 2 else [])
         fits[ncomp], launches = run_rung(
             label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
-            counters, need, ["gauss_chi2_fused"], segment_iters=None)
+            counters, need, ["gauss_chi2_fused", "hf_chi2_fused"],
+            segment_iters=None)
         runs.append(launches)
         st, replayed = graphs.last_stats, REPLAYED[label]
         print(f"traced rung ncomp={ncomp} at the defaults: "
@@ -1047,8 +1125,8 @@ def phase_traced(seed, counters, ladder, keep=None):
         _, launches = run_rung(
             f"traced knob {json.dumps(kw)} rung ncomp=1 R={n_small}",
             seed + 1, nh3(1, n_small), n_small, config(1, **kw), counters,
-            ["hf_chi2_fused", "table_lerp"], ["gauss_chi2_fused"],
-            segment_iters=0)
+            ["hf_lnl_fused", "table_lerp"],
+            ["gauss_chi2_fused", "hf_chi2_fused"], segment_iters=0)
         runs.append(launches)
     xarr, rest, data, _ = gauss_cube(n_small,
                                      np.random.default_rng(seed + 10))
@@ -1057,7 +1135,7 @@ def phase_traced(seed, counters, ladder, keep=None):
         f"traced gauss rung ncomp=2 R={n_small}", seed + 2,
         make_gauss_runner(xarr, rest, data, 2, g_utrans), n_small,
         NSConfig(**LADDER), counters, ["gauss_chi2_fused", "table_lerp"],
-        ["hf_chi2_fused"], segment_iters=0)
+        ["hf_chi2_fused", "hf_lnl_fused"], segment_iters=0)
     runs.append(launches)
 
     # (d) the modes of the full-width rung 2
@@ -1126,7 +1204,7 @@ def traced_entry_points(seed, counters, utrans, direct, xa, data, noise):
           f"loglikelihood (NumPy) equal: {same_host}, launches "
           f"{json.dumps(used)}", flush=True)
     if not (same and same_host) or not all(
-            used[k] > 0 for k in ("hf_chi2_fused", "table_lerp",
+            used[k] > 0 for k in ("hf_lnl_fused", "table_lerp",
                                   "tapered_invert")) \
             or used["gauss_chi2_fused"]:
         fail("traced (e): from_data or loglikelihood is not the direct "
@@ -1308,10 +1386,11 @@ def check_cube(label, fitter, batches, valid_ix):
     for b in batches:
         for r in b.rungs:
             n_refit += check_refits(label, fitter, b, r, recs)
-            need = ["hf_chi2_fused", "table_lerp"] + (
+            need = ["hf_lnl_fused", "table_lerp"] + (
                 ["tapered_invert"] if r["ncomp"] == 2 else [])
             if any(r["launches"][k] <= 0 for k in need) or \
-                    r["launches"]["gauss_chi2_fused"]:
+                    r["launches"]["gauss_chi2_fused"] or \
+                    r["launches"]["hf_chi2_fused"]:
                 fail(f"{label} rung {r['ncomp']}: kernels "
                      f"{r['launches']}, need {need} and no K4")
     hist = np.bincount(list(nbest.values()), minlength=fitter.ncomp_max + 1)
@@ -1747,9 +1826,10 @@ def mesh_dp(seed, counters, traced):
         label = f"mesh dp=2 {mode} rung ncomp={ncomp} R={n_pix}"
         fit, launches = run_rung(
             label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
-            counters, ["hf_chi2_fused", "table_lerp"]
+            counters, ["hf_lnl_fused", "table_lerp"]
             + (["tapered_invert"] if ncomp == 2 else []),
-            ["gauss_chi2_fused"], segment_iters=segment_iters, mesh=mesh)
+            ["gauss_chi2_fused", "hf_chi2_fused"],
+            segment_iters=segment_iters, mesh=mesh)
         runs.append(launches)
         print(f"{label}: wall {WALLS[label]:.2f} s at dp = 2 against "
               f"{WALLS.get(ref, float('nan')):.2f} s without a mesh "
@@ -1836,10 +1916,12 @@ def mesh_sp(seed, counters):
         for m in (None, mesh):
             label = (f"mesh {'(1, 2)' if m else 'none'} segment_iters="
                      f"{segment_iters} rung ncomp=2 R={GRAPH_PIXELS}")
+            k1 = ["hf_chi2_fused", "hf_lnl_fused"][::1 if m else -1]
             fit, launches = run_rung(
                 label, seed + 2, runner, GRAPH_PIXELS, cfg, counters,
-                ["hf_chi2_fused", "table_lerp", "tapered_invert"],
-                ["gauss_chi2_fused"], segment_iters=segment_iters, mesh=m)
+                [k1[0], "table_lerp", "tapered_invert"],
+                ["gauss_chi2_fused", k1[1]], segment_iters=segment_iters,
+                mesh=m)
             runs.append(launches)
             res[m is None] = (fit.lnz.cpu().numpy(),
                               fit.lnz_err.cpu().numpy())
@@ -1861,6 +1943,7 @@ def host_worker(rank, world, address, out, seed):
     from nestfit_tpu_torch.parallel import initialize_distributed
 
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
+                "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
@@ -1970,7 +2053,7 @@ def mesh_varnoise(counters):
               f"nbest_bic {out['nbest_bic'].mean(axis=1).round(3).tolist()}, "
               f"kernels {json.dumps(launches)}", flush=True)
         if not np.isfinite(out["lnz"]).all() or \
-                any(launches[k] <= 0 for k in ("hf_chi2_fused", "table_lerp",
+                any(launches[k] <= 0 for k in ("hf_lnl_fused", "table_lerp",
                                                "tapered_invert")):
             fail(f"mesh varnoise {label}: non-finite lnZ or a kernel never "
                  "launched")
@@ -2122,6 +2205,7 @@ def aot_worker(mode, out, seed):
     from nestfit_tpu_torch.sampling import aot, graphs
 
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
+                "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
@@ -2134,9 +2218,10 @@ def aot_worker(mode, out, seed):
         name = f"aot {mode} {label}"
         f, launches = run_rung(
             name, seed + ncomp, runners[ncomp], TRACED_PIXELS,
-            configs[ncomp], counters, ["hf_chi2_fused", "table_lerp"]
+            configs[ncomp], counters, ["hf_lnl_fused", "table_lerp"]
             + (["tapered_invert"] if ncomp == 2 else []),
-            ["gauss_chi2_fused"], segment_iters=segment_iters,
+            ["gauss_chi2_fused", "hf_chi2_fused"],
+            segment_iters=segment_iters,
             prepared=prepared and segment_iters == 0)
         res.setdefault("first_result", time.time())
         res["fits"][label] = {k: getattr(f.ns, k).cpu().numpy() for k in (
@@ -2481,7 +2566,7 @@ def phase_bench():
     if not (gates["selection"] and gates["engine"]) or not res["card"]:
         fail(f"bench: gates {gates}, card {res['card']!r}")
     launches = {k: sum(r[k] for r in res["launches"])
-                for k in ("hf_chi2_fused", "table_lerp", "tapered_invert")}
+                for k in ("hf_lnl_fused", "table_lerp", "tapered_invert")}
     if min(launches.values()) <= 0 or len(res["seeds"]) != 1:
         fail(f"bench: launches {launches}, {len(res['seeds'])} timed seeds")
     sd = res["seeds"][0]
@@ -2492,7 +2577,7 @@ def phase_bench():
           f"gates {gates}, native truth "
           f"{res['gates'].get('native400', 'compared')}, launches "
           f"{json.dumps(launches)}; card {res['card']}", flush=True)
-    return [dict(launches, gauss_chi2_fused=0)]
+    return [dict(launches, gauss_chi2_fused=0, hf_chi2_fused=0)]
 
 
 def phase_validation(counters):
@@ -2534,7 +2619,7 @@ def phase_validation(counters):
     if n_conv < CONVERGED_SHARE * n_runs or n_short:
         fail(f"validation: {n_runs - n_conv} of {n_runs} runs not converged "
              f"({n_short} short of the death budget)")
-    for k in ("hf_chi2_fused", "table_lerp", "tapered_invert"):
+    for k in ("hf_lnl_fused", "table_lerp", "tapered_invert"):
         if launches[k] <= 0:
             fail(f"validation: kernel {k} never launched")
     rows, outliers, _ = pm.classify(nat, rec, "gpu")
@@ -2582,7 +2667,7 @@ def phase_probes(counters):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: int(fn.launches) for k, fn in counters.items()}
-        for k in ("hf_chi2_fused", "table_lerp", "tapered_invert"):
+        for k in ("hf_lnl_fused", "table_lerp", "tapered_invert"):
             if launches[k] <= 0:
                 fail(f"probes {label}: kernel {k} never launched")
         for k in total:
@@ -2753,6 +2838,7 @@ def main():
     phase_forward(args.seed)
     phase_forward(args.seed + 1)
     counters = {"hf_chi2_fused": fused.hf_chi2_fused,
+                "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}

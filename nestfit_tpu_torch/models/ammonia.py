@@ -6,7 +6,8 @@ Six parameters per velocity component, parameter-major packed
 [log10 cm^-2], sigm [km/s], orth [0-1].  ``amm_predict`` is the plain
 PyTorch model; ``fused_chi2`` computes the same prediction and its
 squared residual against the data in one launch of the Hopper kernel
-``ops.fused.hf_chi2_fused``.
+``ops.fused.hf_chi2_fused``, and ``fused_lnl`` the whole ln-likelihood
+over every transition in one launch of ``ops.fused.hf_lnl_fused``.
 """
 
 import math
@@ -137,6 +138,47 @@ def fused_chi2(spec: Spectrum, params_flat, cold: bool = False,
     return fused.hf_chi2_fused(
         trans, spec.dnu, spec.t0, spec.tbg, spec.data,
         *(x.contiguous() for x in (voff, tex, tau0, sigm)))
+
+
+def lnl_constants(trans: Transition) -> np.ndarray:
+    """What the one-launch likelihood's NH3 step (``AmmoniaPrep`` in
+    ``csrc/hf_chi2.cu``) reads of ``trans``, as float32: ``[H nu / KB,
+    E_n / KB, 2n + 1, 1 (para) or 2 (ortho), 1 (para) or 0, c^2 A / (8 pi
+    nu^2), nu, sqrt(2 pi), c]`` (:func:`tau_main`'s constants, rounded as
+    PyTorch rounds them there), then ``(E_l / KB, g_l)`` of every level
+    of the species (:func:`partition_func`'s tables)."""
+    e, g = (_E_PARA, _G_PARA) if trans.para else (_E_ORTH, _G_ORTH)
+    head = [H * trans.nu / KB, float(_level_energy_k(trans.n)),
+            2.0 * trans.n + 1.0, 1.0 if trans.para else 2.0,
+            1.0 if trans.para else 0.0,
+            CCMS**2 * trans.ea / (8.0 * np.pi * trans.nu**2), trans.nu,
+            math.sqrt(2.0 * np.pi), CKMS]
+    return np.concatenate([head, np.stack([e, g], axis=1).ravel()]).astype(
+        np.float32)
+
+
+def lnl_model():
+    """The model as ``ops.fused.hf_lnl_fused`` takes it (at the default
+    ``cold``/``lte``)."""
+    from nestfit_tpu_torch.ops import fused
+
+    return fused.LnlModel(
+        fused.PREP_AMMONIA, N_PARAMS, AMMONIA_TRANSITIONS,
+        lambda spec, p: _component_params(spec, p, False, False),
+        lnl_constants)
+
+
+def fused_lnl(spectra, params_flat):
+    """Ln-likelihood ``[B]`` of flat-batched ``params_flat``
+    ``[B, 6*ncomp]`` over ``spectra`` (row ``b`` against data row
+    ``b % R``) at the default ``cold``/``lte``: one launch of
+    ``ops.fused.hf_lnl_fused`` on CUDA tensors, which computes
+    :func:`tau_main` per transition itself; its plain version on CPU
+    tensors."""
+    from nestfit_tpu_torch.ops import fused
+
+    return fused.hf_lnl_fused(lnl_model(), tuple(spectra),
+                              params_flat.float().contiguous())
 
 
 def make_ammonia_spectrum(xarr, data, noise, trans_id=1, device="cuda",

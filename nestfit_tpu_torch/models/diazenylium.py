@@ -8,9 +8,12 @@ so there is no partition function.  ``nnhp_predict`` is the plain
 PyTorch model; ``fused_chi2`` computes the same prediction and its
 squared residual against the data in one launch of the Hopper kernel
 ``ops.fused.hf_chi2_fused`` (the NH3 model's kernel, up to its
-``MAX_LINES`` hyperfine lines: N2H+ (3-2) has 45).
+``MAX_LINES`` hyperfine lines: N2H+ (3-2) has 45), and ``fused_lnl`` the
+whole ln-likelihood over every transition in one launch of
+``ops.fused.hf_lnl_fused``.
 """
 
+import numpy as np
 import torch
 
 from nestfit_tpu_torch.models import hyperfine
@@ -52,6 +55,28 @@ def fused_chi2(spec: Spectrum, params_flat):
     return fused.hf_chi2_fused(
         trans, spec.dnu, spec.t0, spec.tbg, spec.data,
         *(x.contiguous() for x in (voff, tex, tau0, sigm)))
+
+
+def lnl_model():
+    """The model as ``ops.fused.hf_lnl_fused`` takes it (its kernel step
+    reads no constants)."""
+    from nestfit_tpu_torch.ops import fused
+
+    return fused.LnlModel(fused.PREP_DIAZENYLIUM, N_PARAMS,
+                          DIAZENYLIUM_TRANSITIONS, _component_params,
+                          lambda trans: np.zeros(0, np.float32))
+
+
+def fused_lnl(spectra, params_flat):
+    """Ln-likelihood ``[B]`` of flat-batched ``params_flat``
+    ``[B, 4*ncomp]`` over ``spectra`` (row ``b`` against data row
+    ``b % R``): one launch of ``ops.fused.hf_lnl_fused`` on CUDA tensors,
+    which computes ``10**ltau`` itself; its plain version on CPU
+    tensors."""
+    from nestfit_tpu_torch.ops import fused
+
+    return fused.hf_lnl_fused(lnl_model(), tuple(spectra),
+                              params_flat.float().contiguous())
 
 
 def make_diazenylium_spectrum(xarr, data, noise, trans_id=1, device="cuda",

@@ -6,11 +6,13 @@ leading batch dims ``[..., R, ndim]`` whose last batch axis is aligned
 with the spectra's pixel axis.
 
 Which path runs follows the tensors' device: on CUDA the likelihood is
-one launch of the model's fused kernel per spectrum (its ``fused_chi2``:
-K1 for NH3 and N2H+, K4 for the Gaussian mixture), on the CPU it is the
-model's plain ``model_predict`` path.
-``plain=True`` takes the plain path on any device; it is the reference
-the kernels are held against.
+one launch of the model's one-launch likelihood over every spectrum
+(its ``fused_lnl``: K1's ``hf_lnl_fused`` for NH3 and N2H+) where the
+runner's input allows it, else one launch of the model's fused kernel
+per spectrum (its ``fused_chi2``: K1 for NH3 and N2H+, K4 for the
+Gaussian mixture); on the CPU it is the model's plain ``model_predict``
+path.  ``plain=True`` takes the plain path on any device; it is the
+reference the kernels are held against.
 
 The likelihood runs over channel slices: one per spectrum, or, on a
 runner placed on a mesh row (:meth:`Runner.placed`) with several
@@ -134,6 +136,18 @@ class Runner:
             for spec in self.spectra
         )
 
+    @property
+    def one_launch(self) -> bool:
+        """Whether the fused likelihood is the model's one launch over
+        every spectrum (its ``fused_lnl``): the model has one, no
+        ``predict_kwargs`` flag (``cold``, ``lte``) is set, and every
+        spectrum is one channel slice on the runner's device."""
+        return (hasattr(self.model, "fused_lnl")
+                and not any(self.predict_kwargs.values())
+                and all(len(slices) == 1
+                        and same_device(slices[0][2].dnu.device, self.device)
+                        for slices in self.channel_slices))
+
     def log_likelihood(self, theta, plain: bool = False):
         """Summed chi-square ln-likelihood over all spectra."""
         return self._log_likelihood(theta, fused=theta.is_cuda and not plain)
@@ -143,16 +157,21 @@ class Runner:
         slice's device, summed on the runner's device, then scaled by
         ``1 / (2 sigma^2)``.
 
-        ``fused``: the model's ``fused_chi2`` (its kernel on CUDA tensors,
-        the kernel's plain version on CPU tensors).  ``theta[..., R,
-        ndim]`` is flattened to ``B = T * R`` rows; row ``b`` reads data
-        row ``b % R``, so the per-pixel ``1/(2 sigma^2)`` is tiled
-        ``B // R`` times.  Otherwise the model's plain ``model_predict``
-        path, broadcast over ``theta``'s leading dims.
+        ``fused``: where :attr:`one_launch`, the model's ``fused_lnl``
+        (every spectrum, the scaling included); else the model's
+        ``fused_chi2`` per slice (its kernel on CUDA tensors, the kernel's
+        plain version on CPU tensors).  ``theta[..., R, ndim]`` is
+        flattened to ``B = T * R`` rows; row ``b`` reads data row
+        ``b % R``, so the per-pixel ``1/(2 sigma^2)`` is tiled ``B // R``
+        times.  Otherwise the model's plain ``model_predict`` path,
+        broadcast over ``theta``'s leading dims.
         """
         lead = theta.shape[:-1]
         if fused:
             theta = theta.reshape(-1, theta.shape[-1])
+            if self.one_launch:
+                return self.model.fused_lnl(
+                    self.spectra, theta.to(self.device)).reshape(lead)
         total = 0.0
         for spec, slices in zip(self.spectra, self.channel_slices):
             chi2 = 0.0

@@ -20,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 
+from nestfit_tpu_torch.utils import profiling
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -124,15 +126,25 @@ def check(rc: int, name: str) -> None:
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, under a lock (the dp rows of a
-    mesh launch from threads of their own).  While this thread captures a
-    CUDA graph (:func:`recording`), the launch is recorded for the graph
-    instead: it happens at each replay."""
+    mesh launch from threads of their own), and to the recorder's counter
+    that the wrapper names (:func:`count_call`).  While this thread
+    captures a CUDA graph (:func:`recording`), the launch is recorded for
+    the graph instead: it happens at each replay."""
     counts = getattr(_RECORDING, "counts", None)
     if counts is not None:
         counts[wrapper] = counts.get(wrapper, 0) + 1
         return
     with _COUNT_LOCK:
         wrapper.launches += 1
+    count_call(wrapper)
+
+
+def count_call(wrapper, n=1) -> None:
+    """Add ``n`` to the recorder's counter ``wrapper.counter``, where the
+    wrapper names one (a plain version on the CPU counts there too)."""
+    name = getattr(wrapper, "counter", None)
+    if name is not None:
+        profiling.count(name, n)
 
 
 def add_launches(counts) -> None:
@@ -140,6 +152,8 @@ def add_launches(counts) -> None:
     with _COUNT_LOCK:
         for wrapper, n in counts.items():
             wrapper.launches += n
+    for wrapper, n in counts.items():
+        count_call(wrapper, n)
 
 
 @contextlib.contextmanager

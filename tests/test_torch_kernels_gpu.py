@@ -258,3 +258,151 @@ def test_gauss_chi2_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fused.gauss_chi2_fused(fc, dnu, data, voff, wide, peak)
     assert fused.gauss_chi2_fused.launches == n0
+
+
+#: one-launch likelihood cases: model, (trans_id, channels) a spectrum,
+#: ncomp, R, T, noise per row (else one value)
+LNL_CASES = {
+    "nh3_c1": ("ammonia", ((1, 380), (2, 380)), 1, 64, 5, True),
+    "nh3_c2": ("ammonia", ((1, 380), (2, 380)), 2, 64, 5, True),
+    # B = 3,200: the compacted slice round
+    "nh3_compacted": ("ammonia", ((1, 380), (2, 380)), 2, 64, 50, True),
+    # B = 21, no multiple of the two rows a block; one noise value
+    "nh3_odd": ("ammonia", ((1, 380), (2, 380)), 2, 7, 3, False),
+    # three transitions (one warp a block idle), the ortho (3,3), and a
+    # channel count a transition (the K that fits them all)
+    "nh3_three": ("ammonia", ((1, 380), (2, 256), (3, 600)), 2, 5, 3, True),
+    "nh3_four": ("ammonia", ((1, 384), (2, 384), (3, 384), (4, 384)), 3, 4,
+                 3, True),
+    "n2hp_c1": ("diazenylium", ((1, 400),), 1, 64, 5, True),
+    "n2hp_c2": ("diazenylium", ((1, 400),), 2, 64, 5, True),
+    "n2hp_two": ("diazenylium", ((1, 400), (3, 400)), 2, 64, 5, True),
+}
+
+
+def _lnl_case(name, seed=11):
+    """The case's runner on the card and ``[T * R, ndim]`` parameters
+    drawn from its prior."""
+    from nestfit_tpu_torch.models import RUNNERS
+
+    model, spectra, ncomp, R, T, per_row = LNL_CASES[name]
+    mod = ammonia if model == "ammonia" else diazenylium
+    vmax, noise = (30, 0.2) if model == "ammonia" else (20, 0.1)
+    rng = np.random.default_rng(seed)
+    specs = []
+    for tid, S in spectra:
+        xarr = freq_axis_from_velocity(np.linspace(-vmax, vmax, S),
+                                       mod.TRANSITIONS[tid - 1].nu)
+        sig = rng.uniform(0.7, 1.3, R) * noise if per_row else noise
+        specs.append(mod.make_model_spectrum(
+            xarr, rng.normal(scale=noise, size=(R, S)), sig,
+            trans_id=tid))
+    utrans = (get_irdc_priors if model == "ammonia"
+              else get_diazenylium_priors)()
+    runner = RUNNERS[model](tuple(specs), utrans, ncomp=ncomp)
+    u = torch.as_tensor(rng.uniform(size=(T * R, runner.ndim)),
+                        dtype=torch.float32, device="cuda")
+    return runner, utrans.transform(u, ncomp, plain=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(LNL_CASES))
+def test_hf_lnl_kernel_matches_plain_and_the_split_path(name, monkeypatch):
+    """The one-launch likelihood against its plain version on the same
+    CUDA tensors, and against the runner's two-launch path (a K1 launch a
+    transition after the model's prep ops, scaled by the runner), at
+    K1's bar."""
+    _card()
+    runner, theta = _lnl_case(name)
+    assert runner.one_launch
+    n0, s0 = fused.hf_lnl_fused.launches, fused.hf_chi2_fused.launches
+    got = runner.model.fused_lnl(runner.spectra, theta)
+    torch.cuda.synchronize()
+    assert fused.hf_lnl_fused.launches == n0 + 1
+    assert fused.hf_chi2_fused.launches == s0
+    assert got.shape == (theta.shape[0],) and got.dtype == torch.float32
+    plain = fused.hf_lnl_plain(runner.model.lnl_model(), runner.spectra,
+                               theta)
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=1e-3)
+    # the runner's path on [T, R, ndim] proposals, then the split one
+    R = runner.spectra[0].data.shape[0]
+    th = theta.reshape(-1, R, theta.shape[-1])
+    lnl = runner._log_likelihood(th, fused=True)
+    assert torch.equal(lnl.reshape(-1), got)
+    with monkeypatch.context() as m:
+        m.setattr(type(runner), "one_launch", False)
+        split = runner._log_likelihood(th, fused=True)
+    torch.cuda.synchronize()
+    assert fused.hf_chi2_fused.launches == s0 + len(runner.spectra)
+    torch.testing.assert_close(lnl, split, rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_hf_lnl_kernel_at_the_line_cap():
+    """``MAX_LINES`` lines at ``MAX_COMP`` components in two transitions:
+    the launch opts in to 96 KB of tables."""
+    _card()
+    base = DIAZENYLIUM_TRANSITIONS[2]
+    reps = -(-fused.MAX_LINES // base.nhf)
+    voff = np.concatenate([base.voff + 0.37 * k for k in range(reps)])
+    wts = np.tile(base.tau_wts, reps)[:fused.MAX_LINES]
+    trans = dataclasses.replace(base, voff=voff[:fused.MAX_LINES],
+                                tau_wts=wts / wts.sum())
+    model = dataclasses.replace(
+        diazenylium.lnl_model(), transitions=(trans,) * 3,
+        components=lambda spec, p: (
+            trans, *diazenylium._component_params(spec, p)[1:]))
+    R, T, C = 4, 5, fused.MAX_COMP
+    rng = np.random.default_rng(8)
+    xarr = freq_axis_from_velocity(np.arange(-20, 20, 0.1), trans.nu)
+    specs = tuple(diazenylium.make_diazenylium_spectrum(
+        xarr, rng.normal(scale=0.1, size=(R, xarr.shape[0])), 0.1,
+        trans_id=tid) for tid in (1, 3))
+    theta = torch.as_tensor(np.concatenate(
+        [rng.uniform(lo, hi, (T * R, C)) for lo, hi in
+         ((-4, 4), (2.8, 12), (-2, 0.3), (0.05, 1))], axis=1),
+        dtype=torch.float32, device="cuda")
+    got = fused.hf_lnl_fused(model, specs, theta)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, fused.hf_lnl_plain(model, specs, theta),
+                               rtol=2e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["nh3_c2", "n2hp_two"])
+def test_hf_lnl_graph_replay_equals_eager(name):
+    """The entry captured in a CUDA graph and replayed on new parameters
+    (copied into the captured input) gives the eager launch's lnL bit
+    for bit: the transitions are summed in a fixed order."""
+    _card()
+    runner, theta = _lnl_case(name)
+    _, theta2 = _lnl_case(name, seed=12)
+    static = theta.clone()
+    eager = runner.model.fused_lnl(runner.spectra, static)   # warm-up
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = runner.model.fused_lnl(runner.spectra, static)
+    n0 = fused.hf_lnl_fused.launches
+    for th in (theta2, theta):
+        static.copy_(th)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, runner.model.fused_lnl(runner.spectra, th))
+    assert torch.equal(out, eager)
+    assert fused.hf_lnl_fused.launches == n0 + 2
+
+
+@pytest.mark.gpu
+def test_hf_lnl_wrapper_rejects_what_the_kernel_does_not_take():
+    _card()
+    runner, theta = _lnl_case("n2hp_c2")
+    with pytest.raises(ValueError, match="contiguous"):
+        fused.hf_lnl_fused(runner.model.lnl_model(), runner.spectra,
+                           theta.repeat(1, 2)[:, ::2])
+    with pytest.raises(ValueError, match="exceed"):
+        runner.model.fused_lnl(runner.spectra, torch.zeros(
+            (theta.shape[0], 4 * 9), device="cuda"))
+    with pytest.raises(ValueError, match="exceed"):
+        runner.model.fused_lnl(runner.spectra * 5, theta)

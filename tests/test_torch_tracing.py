@@ -218,3 +218,77 @@ def test_batch_trace_counts_the_refit_rows_by_kind(batch):
     assert tr.tagged[("cube.refit_rows", (("kind", "mode_loss"),))] == retry
     assert tr.tagged[("cube.refit_rows", (("kind", "boundary"),))] == band
     assert tr.counters["fit.resample_clamped"] >= 0
+
+
+def _k1_runner(device):
+    """A two-transition NH3 runner on the 4x2 synthetic stack's first
+    row of pixels, and ``[3, 4, 12]`` parameters from its prior."""
+    from _cube_inputs import synth_arrays
+
+    from nestfit_tpu_torch.models import ammonia
+
+    spectra = tuple(
+        ammonia.make_ammonia_spectrum(xarr, data[:, 0], 0.1, trans_id=tid,
+                                      device=device)
+        for tid, xarr, data in synth_arrays())
+    runner = AmmoniaRunner(spectra, get_irdc_priors(vsys=0.0, device=device),
+                           ncomp=2, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    u = torch.rand((3, 4, 12), generator=gen, device=device)
+    return runner, runner.transform(u)
+
+
+def test_k1_counters_count_the_plain_versions():
+    """On the CPU the likelihood entries' plain versions count as their
+    launches: ``k1.lnl_fused`` once an evaluation, ``k1.lnl_split`` once
+    a transition and channel slice."""
+    runner, theta = _k1_runner("cpu")
+    with prof.collect() as tr:
+        runner._log_likelihood(theta, fused=True)
+        runner.placed(["cpu", "cpu"])._log_likelihood(theta, fused=True)
+        runner.log_likelihood(theta)      # the model_predict path
+    assert tr.counters == {"k1.lnl_fused": 1, "k1.lnl_split": 4}
+
+
+def test_k1_counters_count_each_replay():
+    """A launch recorded while a graph is captured counts nothing then,
+    and its counter once for each replay (``_build.add_launches``)."""
+    from nestfit_tpu_torch.ops import _build, fused
+
+    n0 = fused.hf_lnl_fused.launches
+    with prof.collect() as tr:
+        with _build.recording() as per_replay:
+            _build.count_launch(fused.hf_lnl_fused)
+            _build.count_launch(fused.hf_chi2_fused)
+            _build.count_launch(fused.hf_chi2_fused)
+        assert tr.counters == {}
+        for _ in range(3):
+            _build.add_launches(per_replay)
+    assert tr.counters == {"k1.lnl_fused": 3, "k1.lnl_split": 6}
+    assert fused.hf_lnl_fused.launches == n0 + 3
+
+
+@pytest.mark.gpu
+def test_k1_counters_count_each_replay_of_a_ladder_batch():
+    """On the card a ladder batch's likelihoods are one-launch K1
+    launches, most of them inside replayed graphs: the batch's
+    ``k1.lnl_fused`` equals the wrapper's launch count (which counts
+    replays), exceeds the graph replays, and no per-transition launch
+    ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nestfit_tpu_torch.ops import fused
+
+    fitter = CubeFitter(
+        synth_stack(tcube), get_irdc_priors(vsys=0.0, device="cuda"),
+        AmmoniaRunner, device="cuda", batch_size=8, nlive_buckets=1,
+        ncomp_max=2, ns_kwargs={"nlive": 16, "tol": 5.0, "max_iter": 300},
+        segment_iters=64)
+    n0, s0 = fused.hf_lnl_fused.launches, fused.hf_chi2_fused.launches
+    (b,) = list(fitter._fit_batches(seed=11))
+    torch.cuda.synchronize()
+    n = b.trace.counters
+    assert n["k1.lnl_fused"] == fused.hf_lnl_fused.launches - n0
+    assert n["k1.lnl_fused"] > n["ns.graph_steps"] > 0
+    assert "k1.lnl_split" not in n
+    assert fused.hf_chi2_fused.launches == s0

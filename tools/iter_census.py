@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Device operations a segmented sampler iteration runs, by regime.
+
+One rung-2 ``fit_batch`` (``segment_iters`` 250, nlive 100, tol 1.0,
+init_factor 4) on ``R`` synthetic pixels of each of NH3 (1,1)+(2,2)
+(``synth.make_synth_cube_arrays``, noise 0.15) and N2H+ (1-0) (two
+components, noise 0.1); a second call on the kept graphs runs under
+``torch.profiler``.  The device events (kernels, copies, sets) that
+start inside each ``ns.segment`` span are counted against the span's
+iterations, for the candidate and the kill+slice regimes apart, and
+K1's (kernels named ``hf_chi2*``) among them.  One JSON line.
+
+Run from the root of the repository, on a card::
+
+    python3 tools/iter_census.py [R]
+"""
+
+import json
+import sys
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, ".")
+
+from nestfit_tpu_torch import oracle, synth  # noqa: E402
+from nestfit_tpu_torch.models import (  # noqa: E402
+    AmmoniaRunner,
+    DiazenyliumRunner,
+    ammonia,
+    diazenylium,
+)
+from nestfit_tpu_torch.models.tables import DIAZENYLIUM_TRANSITIONS  # noqa
+from nestfit_tpu_torch.priors import (  # noqa: E402
+    get_diazenylium_priors,
+    get_irdc_priors,
+)
+from nestfit_tpu_torch.sampling import NSConfig, fit_batch  # noqa: E402
+from nestfit_tpu_torch.utils import freq_axis_from_velocity  # noqa: E402
+from nestfit_tpu_torch.utils import profiling  # noqa: E402
+
+CFG = NSConfig(nlive=100, tol=1.0, init_factor=4)
+
+
+def nh3_runner(R):
+    (xa11, d11), (xa22, d22), _ = synth.make_synth_cube_arrays(
+        n_pix=R, noise=0.15, rng=np.random.default_rng(0))
+    specs = [ammonia.make_ammonia_spectrum(x, d, np.full(R, 0.15),
+                                           trans_id=t, device="cuda")
+             for t, (x, d) in enumerate(((xa11, d11), (xa22, d22)), 1)]
+    return AmmoniaRunner(specs, get_irdc_priors(device="cuda"), ncomp=2,
+                         device="cuda")
+
+
+def n2hp_runner(R):
+    rng = np.random.default_rng(1)
+    xa = freq_axis_from_velocity(np.arange(-20, 20, 0.1),
+                                 DIAZENYLIUM_TRANSITIONS[0].nu)
+    p = np.stack([rng.uniform(-1.5, -0.5, R), rng.uniform(4, 10, R),
+                  rng.uniform(-0.5, 0.5, R), rng.uniform(0.2, 0.5, R)], 1)
+    d = np.stack([oracle.nnhp_predict(xa, q, trans_id=1) for q in p])
+    spec = diazenylium.make_diazenylium_spectrum(
+        xa, d + rng.normal(scale=0.1, size=d.shape), np.full(R, 0.1),
+        trans_id=1, device="cuda")
+    return DiazenyliumRunner(spec, get_diazenylium_priors(device="cuda"),
+                             ncomp=2, device="cuda")
+
+
+def census(runner, R):
+    """``{regime: {ops_per_iter, k1_per_iter, iters}}`` of the profiled
+    call, and the recorder's K1 and sampler counters."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fit_batch(gen, runner, R, CFG, segment_iters=250, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof, profiling.collect() as tr:
+        fit_batch(gen, runner, R, CFG, segment_iters=250, device="cuda")
+        torch.cuda.synchronize()
+    evs = sorted((e.start_ns(), e.name())
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA)
+    starts = np.array([t for t, _ in evs], dtype=np.int64)
+    k1 = np.array(["hf_chi2" in n for _, n in evs])
+    by = {}
+    for name, t0, t1, _depth, attrs in tr.spans:
+        if name != "ns.segment":
+            continue
+        lo, hi = np.searchsorted(starts, [t0, t1])
+        ops, k1s, iters = by.get(attrs["mode"], (0, 0, 0))
+        by[attrs["mode"]] = (ops + int(hi - lo), k1s + int(k1[lo:hi].sum()),
+                             iters + attrs["i1"] - attrs["i0"])
+    out = {mode: {"ops_per_iter": o / max(i, 1),
+                  "k1_per_iter": k / max(i, 1), "iters": i}
+           for mode, (o, k, i) in by.items()}
+    out["counters"] = {k: v for k, v in tr.counters.items()
+                       if k.startswith(("k1.", "ns.iterations",
+                                        "ns.graph"))}
+    return out
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("iter_census: needs a CUDA card")
+    R = int(sys.argv[1]) if len(sys.argv) > 1 else 512
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "R": R,
+                      "nh3": census(nh3_runner(R), R),
+                      "n2hp": census(n2hp_runner(R), R)}))
+
+
+if __name__ == "__main__":
+    main()
