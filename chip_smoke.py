@@ -48,9 +48,9 @@ Phases, in order; any failure exits non-zero:
                rungs 1 and 2, and a second graph run on the first one's
                kept graphs: lnZ, n_dead, max lnL and calls bit for bit;
                (b) both rungs at 1024 px, ``fit_batch`` called at its
-               defaults, under the ladder's gates, every block but the
-               program's warm-up block a replay and K1, K2 (and K3 on rung
-               2) launched by replays, each pixel's lnZ held against
+               defaults, under the ladder's gates, every block but each
+               key's first (an eager warm-up, then captured) a replay and
+               K1, K2 (and K3 on rung 2) launched by replays, each pixel's lnZ held against
                phase *ladder*'s (median difference within two median
                combined errors); (c) a 64-px rung 1 with each knob
                (``efr``, ``ceff``, ``log_zero``, ``pwrap_dims``) and a
@@ -131,8 +131,8 @@ Phases, in order; any failure exits non-zero:
                tasks; the traced plan both rungs' programs, within the
                cap).  (ii)'s fits equal (i)'s bit for bit (lnZ, n_dead,
                calls, max lnL), the stale plan's too; (ii)'s traced first
-               calls run no warm-up block and capture no graph but a tail
-               block at ``max_iter``; the reports have no error and the
+               calls warm up and capture no block but a tail block at
+               ``max_iter``; the reports have no error and the
                build task's cache hits and misses number 4.  Prints each
                process's wall from its start to its first result, the
                preparation's wall per task and the first-call walls with
@@ -1087,11 +1087,12 @@ def phase_traced(seed, counters, ladder, keep=None):
               f"{json.dumps(dataclasses.asdict(st))}; launches by replays "
               + ", ".join(f"{k} {replayed[k]} of {launches[k]}"
                           for k in need)
-              + " (the rest: the initial live points, the program's "
-              "warm-up block, the posterior products)", flush=True)
-        # a new program's first block is its warm-up, run eagerly; every
-        # other block is a replay, and each kernel rose by replays
-        if st.eager_blocks or st.warmups > 1 or \
+              + " (the rest: the initial live points, the warm-up "
+              "blocks, the posterior products)", flush=True)
+        # each key's first block is its warm-up, run eagerly and then
+        # captured; every other block is a replay, and each kernel rose
+        # by replays
+        if st.eager_blocks or st.warmups != st.captures or \
                 st.blocks != st.warmups + st.replays or \
                 any(replayed[k] <= 0 for k in need):
             fail(f"{label}: a block at the defaults was not a replay, or a "
@@ -1837,12 +1838,15 @@ def mesh_dp(seed, counters, traced):
         if mode == "traced" and ncomp in traced:
             median_gate(label, fit.lnz.cpu().numpy(),
                         fit.lnz_err.cpu().numpy(), *traced[ncomp])
-    # each dp row keeps both rungs' programs: a second ladder captures no
-    # graph again
-    kept = [sum(key[1] == k for key in graphs._PROGRAMS) for k in (0, 1)]
-    print(f"mesh dp=2: programs kept per dp row {kept}", flush=True)
+    # each dp row keeps both traced rungs' programs (the segmented rung
+    # shares rung 1's): a second ladder captures no block again
+    kept = [sum(key[1] == k and any(g[0] == "block" for g in prog.graphs)
+                for key, prog in graphs._PROGRAMS.items()) for k in (0, 1)]
+    print(f"mesh dp=2: programs with traced blocks kept per dp row {kept}",
+          flush=True)
     if kept != [2, 2]:
-        fail(f"mesh dp=2: the rows keep {kept} programs, not both rungs'")
+        fail(f"mesh dp=2: the rows keep {kept} traced programs, not both "
+             "rungs'")
     # a (1, 1) mesh on the card is no mesh, bit for bit
     one = make_mesh(devices=["cuda:0"])
     for segment_iters in (250, 0):
@@ -2255,7 +2259,7 @@ def aot_worker(mode, out, seed):
         for name, (key, _) in res["plan_keys"].items():
             prog = graphs._PROGRAMS.get(key)
             res["graph_keys"][name] = None if prog is None \
-                else sorted(prog.graphs)
+                else sorted(k[1] for k in prog.graphs if k[0] == "block")
     else:
         # a stale plan: prepared at another batch, it misses
         graphs.clear()
@@ -2272,8 +2276,8 @@ def phase_aot(seed):
     """Phase *aot*: two fresh processes of this script fit the NH3 cube of
     phase *traced* (segmented rung 1, traced rungs 1 and 2), (i) with no
     preparation, (ii) after ``precompile_fit``; the fits agree bit for
-    bit, (ii)'s traced first calls run no warm-up block and capture no
-    graph (but a tail block at ``max_iter``), and a stale plan (R = 512)
+    bit, (ii)'s traced first calls warm up and capture no block (but a
+    tail block at ``max_iter``), and a stale plan (R = 512)
     gives (i)'s results.  Prints each process's wall from its start to
     its first result, the preparation's wall per task and the first-call
     walls side by side.  Returns the fits' launches."""
@@ -2326,7 +2330,9 @@ def phase_aot(seed):
     for label in ("traced rung 1", "traced rung 2"):
         if not same(lazy["fits"][f"stale {label}"], lazy["fits"][label]):
             fail(f"aot stale {label}: not the unprepared fit bit for bit")
-        if lazy["stats"][f"stale {label}"]["warmups"] != 1:
+        # missed, the stale plan leaves the fit every warm-up of (i)'s
+        stale = lazy["stats"][f"stale {label}"]["warmups"]
+        if stale < 1 or stale != lazy["stats"][label]["warmups"]:
             fail(f"aot stale {label}: the stale plan did not miss")
     for name, rep in prep["reports"].items():
         names = [r["name"] for r in rep["programs"]]
@@ -2351,7 +2357,7 @@ def phase_aot(seed):
               f"{st['captures']} captures ({len(tails)} tail blocks at "
               f"max_iter: {tails}), {st['replays']} replays; planned keys "
               f"{list(plans[key][1])}", flush=True)
-        if kept is None or st["warmups"] != 0 or \
+        if kept is None or st["warmups"] != len(tails) or \
                 st["captures"] != len(tails) or \
                 any(k[1] >= block for k in tails):
             fail(f"aot prepared {label}: the first call was not warm")

@@ -6,12 +6,11 @@ pool and installs them in the sampler's caches.  There is no XLA here: a
 first ``fit_batch`` call on the card pays instead for the kernel build
 (``ops/_build.build_all``), PyTorch's lazily loaded linear-algebra
 library, the runner's device tables (K1's line tables, the kernels'
-libraries and launchers), and, in the traced mode (``segment_iters=0``)
-only, the program of ``sampling/graphs.py``: its static state, an eager
-warm-up block and one captured CUDA graph per block key.
-:func:`build_plan` lists that work as tasks, :func:`compile_plan` does
-it, and a later ``fit_batch`` with the same runner, batch, config and
-dtype finds its traced program warm and only replays it.
+libraries and launchers), and the CUDA graphs of the kept program of
+``sampling/graphs.py``.  :func:`build_plan` lists that work as tasks,
+:func:`compile_plan` does it, and a later ``fit_batch`` with the same
+runner, batch, config and dtype finds its traced blocks captured and
+only replays them.
 
 What each program kind of the JAX plan becomes:
 
@@ -25,19 +24,19 @@ JAX program            port task
                        the kernels' libraries and one likelihood call
                        of the runner on its own data (its device tables)
 ``init@R``             eager, nothing to prepare
-``cand@R``             not prepared: ``graphs.SegmentedRun`` captures
-                       the candidate iteration and the slice fill as
-                       CUDA graphs at first use, in the fit
-``slice@R``            not prepared: the kill+slice iteration, captured
-                       at first use likewise
+``cand@R``             not prepared: the program's candidate iteration
+                       and slice fill units, captured at first use, in
+                       the fit
+``slice@R``            not prepared: its kill+slice iteration unit,
+                       captured at first use likewise
 ``fin@R``              eager, nothing to prepare
 ``rebuild@R``          eager, nothing to prepare
 ``finalize@R``         eager, nothing to prepare
-``slice@c`` classes    not prepared: each compaction class's units are
+``slice@c`` classes    not prepared: each compaction class's program,
                        captured at first use likewise
-(traced mode)          ``<label>:traced@R``: the program of ``graphs``
-                       on the state ``ns_init`` gives for the runner's
-                       own data, its warm-up block, and the graph of
+(traced mode)          ``<label>:traced@R``: the program on the state
+                       ``ns_init`` gives for the runner's own data, and
+                       its first block and the ``block`` unit's graph of
                        every key ``(i0 % bound_every, block_iters)`` the
                        run meets (they repeat with period
                        ``lcm(block_iters, bound_every)`` in ``i0``)
@@ -61,16 +60,16 @@ Deliberate departures from the JAX module:
 - ``timeout`` bounds the phase: tasks not started by then are reported
   as ``n_abandoned``, and their programs are prepared at first use, the
   normal path.
-- ``graphs`` keeps ``_PROGRAMS_CAP`` traced programs per dp row; a plan
-  that would install more on one row would evict its own programs, and
+- ``graphs`` keeps ``_PROGRAMS_CAP`` programs per dp row; a plan that
+  would install more on one row would evict its own programs, and
   ``compile_plan`` raises on it.
 
-A prepared traced program holds its static state until
-``graphs.clear()``: its dead-point buffers alone are
-``R * (max_iter + nlive) * D`` float32 values.  Its key is that of
+A prepared program holds its static state (the runs' small tensors, no
+dead-point buffer) and its graphs until ``graphs.clear()`` or until
+later programs of its row evict it.  Its key is that of
 ``graphs.program_key``: a runner rebuilt between plan and fit, a config
 that ``NSConfig.resolved`` changes, or data of another dtype or shape
-misses it and the fit prepares its own program, as without a plan.
+misses it and the fit captures its blocks itself, as without a plan.
 """
 
 import dataclasses
@@ -196,11 +195,9 @@ def build_plan(runner, n_runs, config=None, *, n_post=_UNSET,
     if rcfg.log_zero > -1e60:
         loglike2 = _s._floored(loglike2, rcfg.log_zero)
     own = runner.data_tree()
-    # ns_init's bounds: the slim 3-tuple for method "slice", else 7
-    n_bounds = 3 if rcfg.method == "slice" else 7
     key = graphs.program_key(loglike2, 0, True, rcfg,
                              (n_runs, rcfg.nlive, runner.ndim), dtype, tdev,
-                             n_bounds, own)
+                             own)
     blocks = _traced_blocks(rcfg)
     be = max(1, rcfg.bound_every)
     label = label or f"n{runner.ncomp}"
@@ -232,9 +229,9 @@ def compile_plan(tasks, max_workers=12, verbose=None, timeout=None):
     over = {str(d): n for d, n in rows.items() if n > graphs._PROGRAMS_CAP}
     if over:
         raise ValueError(
-            f"the plan installs {over} traced programs on one dp row, more "
-            f"than graphs._PROGRAMS_CAP = {graphs._PROGRAMS_CAP} that the "
-            "cache keeps: later ones would evict earlier ones")
+            f"the plan installs {over} programs on one dp row, more than "
+            f"graphs._PROGRAMS_CAP = {graphs._PROGRAMS_CAP} that the cache "
+            "keeps: later ones would evict earlier ones")
     done, recs, n_abandoned = set(), [], 0
     # the report's walls are the lengths of the plan's and tasks' spans
     with span("aot.plan", n_tasks=len(tasks)) as plan:

@@ -1409,9 +1409,19 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
     if cfg.log_zero > -1e60:
         loglike2 = _floored(loglike2, cfg.log_zero)
 
-    if not (segment_iters and segment_iters > 0):
-        from nestfit_tpu_torch.sampling import graphs
+    segmented = bool(segment_iters and segment_iters > 0)
+    if segmented and not capture:
+        return _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
+                              segment_iters, compact, active, _Units(
+                                  loglike2, cfg))
+    from nestfit_tpu_torch.sampling import graphs
 
+    with graphs.row_stream(gen.device, shard):
+        if segmented:
+            return _run_segmented(
+                gen, loglike2, ndim, n_runs, cfg, dtype, data, segment_iters,
+                compact, active, graphs.SegmentedRun(loglike2, cfg, shard,
+                                                     gen))
         with span("ns.init"):
             state = ns_init(gen, loglike2, data, ndim, n_runs, cfg, dtype)
             state = _apply_active(state, active)
@@ -1419,16 +1429,6 @@ def _run_nested(gen, loglike, ndim, n_runs, config, dtype, data,
         count("ns.iterations", state.i)
         with span("ns.finalize"):
             return ns_finalize(state, cfg)
-    if not capture:
-        return _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
-                              segment_iters, compact, active, _Units(
-                                  loglike2, cfg))
-    from nestfit_tpu_torch.sampling import graphs
-
-    with graphs.row_stream(gen.device, shard):
-        return _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
-                              segment_iters, compact, active,
-                              graphs.SegmentedRun(loglike2, cfg, shard, gen))
 
 
 def _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,

@@ -77,7 +77,7 @@ def test_plan_tasks_and_keys():
 
     want = graphs.program_key(
         _loglike2_for(runner, torch.float32), 0, True, rcfg,
-        (N_PIX, CFG.nlive, 6), torch.float32, torch.device("cpu"), 7,
+        (N_PIX, CFG.nlive, 6), torch.float32, torch.device("cpu"),
         runner.data_tree())
     assert traced[1].key == ("traced",) + want
     odd = aot.build_plan(runner, N_PIX, dataclasses.replace(
@@ -108,22 +108,25 @@ def test_jax_segmented_keywords_warn_and_traced_data_raises():
 def test_traced_keys_are_the_keys_a_run_visits(monkeypatch, block_iters,
                                                bound_every):
     """The plan's keys are the ``(i0 % bound_every, n_iters)`` of every
-    full block a CPU run of the static-state loop runs."""
+    full block a CPU run of the static-state loop runs (the keys of the
+    program's ``"block"`` unit)."""
     cfg = dataclasses.replace(CFG, block_iters=block_iters,
                               bound_every=bound_every)
     runner = _runner()
     plan = aot.build_plan(runner, N_PIX, cfg, segment_iters=0, device="cpu")
     seen = []
-    run_block = graphs._Program.run_block
+    run = graphs._Program.run
 
-    def record(self, i0, n_iters, stats):
-        seen.append((i0, n_iters))
-        return run_block(self, i0, n_iters, stats)
+    def record(self, kind, flag, s, *rest):
+        if kind == "block":
+            assert flag == (s.i % bound_every, flag[1])
+            seen.append(flag)
+        return run(self, kind, flag, s, *rest)
 
-    monkeypatch.setattr(graphs._Program, "run_block", record)
+    monkeypatch.setattr(graphs._Program, "run", record)
     _fit(runner, cfg, 0)
     assert len(seen) >= 4
-    visited = {(i0 % bound_every, n) for i0, n in seen if n == block_iters}
+    visited = {(phase, n) for phase, n in seen if n == block_iters}
     assert set(plan[-1].graph_keys) == visited
 
 

@@ -23,10 +23,11 @@ def _gauss(sigma, mu=0.5):
 
 @pytest.mark.gpu
 def test_graph_matches_eager_on_the_card():
-    """On a card, the captured blocks (one eager warm-up block, then
-    replays) against the eager plain block loop from the same generator
-    state, and a second call on the kept graphs: bit for bit, and the
-    caller's generator left where the eager run leaves it."""
+    """On a card, the captured blocks (each key's first block eager, then
+    captured; replays after it) against the eager plain block loop from
+    the same generator state, and a second call on the kept graphs: bit
+    for bit, and the caller's generator left where the eager run leaves
+    it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     ndim, R = 4, 64

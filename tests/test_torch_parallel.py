@@ -347,29 +347,35 @@ def test_launch_counts_are_thread_safe():
 
 
 def test_programs_are_kept_per_dp_row():
-    """Each dp row keeps its own last ``_PROGRAMS_CAP`` traced programs:
-    the two rungs of a ladder on dp = 2 (four programs) evict none, and
-    a third rung evicts only the oldest of each row."""
+    """Each dp row keeps its own ``_PROGRAMS_CAP`` most recently used
+    programs: a ladder of that many rungs on dp = 2 evicts none, a rung
+    used again stays, and one more rung evicts only the least recently
+    used of each row."""
+    cap = graphs._PROGRAMS_CAP
     cfg = NSConfig(nlive=8).resolved(2)
     gen = torch.Generator().manual_seed(0)
     rungs = [lambda u, d, k=k: -k * torch.sum(u * u, dim=-1)
-             for k in (1.0, 2.0, 3.0)]
-    states = {}
+             for k in range(1, cap + 2)]
+    progs = {}
+
+    def program(r, shard):
+        state = ns_init(gen, rungs[r], None, 2, 4, cfg)
+        return graphs._program(state, rungs[r], None, cfg, shard, True)
+
     graphs.clear()
     try:
-        for r, loglike2 in enumerate(rungs):
+        for r in range(cap):
             for shard in (0, 1):
-                state = ns_init(gen, loglike2, None, 2, 4, cfg)
-                states[r, shard] = graphs._program(state, loglike2, None,
-                                                   cfg, shard, True)
-            if r == 1:
-                assert len(graphs._PROGRAMS) == 4
-        kept = {id(p) for p in graphs._PROGRAMS.values()}
-        assert kept == {id(states[r, k]) for r in (1, 2) for k in (0, 1)}
+                progs[r, shard] = program(r, shard)
+        assert len(graphs._PROGRAMS) == 2 * cap
         # a later call of a kept rung finds its program again
-        state = ns_init(gen, rungs[2], None, 2, 4, cfg)
-        assert graphs._program(state, rungs[2], None, cfg, 1, True) \
-            is states[2, 1]
+        for shard in (0, 1):
+            assert program(0, shard) is progs[0, shard]
+        for shard in (0, 1):
+            progs[cap, shard] = program(cap, shard)
+        kept = {id(p) for p in graphs._PROGRAMS.values()}
+        assert kept == {id(progs[r, k]) for r in (0, *range(2, cap + 1))
+                        for k in (0, 1)}
     finally:
         graphs.clear()
 

@@ -2,8 +2,9 @@
 (``graphs.SegmentedRun``) against the plain eager loop (``capture=False``),
 on the CPU, where the static programs run without capture: the loads,
 the copies back, the deferred writes into the run's dead buffers and
-the clones out of the program are held bit for bit.  The CUDA graph
-path is held against the eager loop on the card in
+the clones out of the program are held bit for bit; and the traced
+mode's blocks on the same kept programs.  The CUDA graph path is held
+against the eager loop on the card in
 ``tests/test_torch_seg_graphs_gpu.py``.
 """
 
@@ -94,20 +95,86 @@ def test_static_segmented_loop_equals_plain_loop(case):
     if case == "slice":
         assert set(modes) == {"slice"}
     # one kept program per compaction class, both regimes in it
-    assert len(graphs._SEG_PROGRAMS) == 1 + len(compactions)
+    assert len(graphs._PROGRAMS) == 1 + len(compactions)
     if case != "second_call":
         return
-    kept = dict(graphs._SEG_PROGRAMS)
+    kept = dict(graphs._PROGRAMS)
     sigma_b = _sigma(1)
     again, gen_again, _ = _run(True, cfg, sigma_b, seed=2)
-    assert graphs._SEG_PROGRAMS == kept     # the same programs, reused
+    assert graphs._PROGRAMS == kept         # the same programs, reused
     _equal(plain, static)                   # the first result unchanged
     plain_b, gen_plain_b, _ = _run(False, cfg, sigma_b, seed=2)
     _equal(plain_b, again)
     assert torch.equal(gen_plain_b, gen_again)
     assert not torch.equal(again.lnz, static.lnz)
     graphs.clear()
-    assert not graphs._SEG_PROGRAMS
+    assert not graphs._PROGRAMS
+
+
+def _traced(cfg, sigma, seed, plain=False):
+    """A traced run (``segment_iters=0``) on the kept programs, or the
+    plain block loop ``ns_traced`` from the same generator state."""
+    gen = torch.Generator().manual_seed(seed)
+    data = (torch.as_tensor(sigma),)
+    if not plain:
+        res = ts._run_nested(gen, _loglike, NDIM, R, cfg, torch.float64,
+                             data, 0, True, None)
+        return res, gen.get_state()
+    rcfg = cfg.resolved(NDIM)
+    state = ts.ns_init(gen, _loglike, data, NDIM, R, rcfg, torch.float64)
+    res = ts.ns_finalize(ts.ns_traced(state, _loglike, data, rcfg), rcfg)
+    return res, gen.get_state()
+
+
+def _tensors(tree):
+    """Every tensor a program holds."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    elif dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, graphs._Program):
+        tree = list(vars(tree).values())
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [x for t in tree for x in _tensors(t)]
+
+
+def test_traced_and_segmented_runs_share_the_one_cache():
+    """A segmented run and a traced run on one dp row keep their programs
+    in the one cache (the traced run at the full batch's key shares the
+    segmented run's program); no kept program holds a dead-point buffer;
+    and a second traced call on the kept program, with other data, leaves
+    the first call's result as it was.  Bit for bit against the plain
+    block loop."""
+    graphs.clear()
+    cfg = ts.NSConfig(nlive=20, tol=0.5, min_compact=64)
+    sigma = _sigma(0)
+    _run(True, cfg, sigma)
+    seg_keys = list(graphs._PROGRAMS)
+    assert len(seg_keys) == 2          # the full batch and its 64-run class
+    traced, gen_traced = _traced(cfg, sigma, 1)
+    # the same programs, the traced run's (the full batch's) most recent
+    assert list(graphs._PROGRAMS) == seg_keys[1:] + seg_keys[:1]
+    full = graphs._PROGRAMS[seg_keys[0]]
+    assert full.block_kills is not None
+    plain, gen_plain = _traced(cfg, sigma, 1, plain=True)
+    _equal(plain, traced)
+    assert torch.equal(gen_plain, gen_traced)
+    dead = R * cfg.resolved(NDIM).max_iter * NDIM
+    for prog in graphs._PROGRAMS.values():
+        assert prog.state.dead_u is None and prog.state.dead_lnl is None
+        assert max(x.numel() for x in _tensors(prog)) < dead
+    sigma_b = _sigma(1)
+    again, gen_again = _traced(cfg, sigma_b, 2)
+    assert list(graphs._PROGRAMS) == seg_keys[1:] + seg_keys[:1]
+    _equal(plain, traced)                   # the first result unchanged
+    plain_b, gen_plain_b = _traced(cfg, sigma_b, 2, plain=True)
+    _equal(plain_b, again)
+    assert torch.equal(gen_plain_b, gen_again)
+    assert not torch.equal(again.lnz, traced.lnz)
+    graphs.clear()
 
 
 def test_a_runner_on_a_shared_prior_keeps_the_prior_tables():

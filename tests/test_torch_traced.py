@@ -150,12 +150,12 @@ def _copies(x):
     return np.asarray(x).reshape(2, -1)
 
 
-@pytest.mark.parametrize("call", ["segment_iters=0", "defaults"])
+@pytest.mark.parametrize("call", ["segment_iters=0"])
 def test_fit_batch_traced_matches_jax(cube, call):  # noqa: F811
-    """``fit_batch`` of both packages in the traced mode, asked for with
-    ``segment_iters=0`` or called at their defaults (the traced mode in
-    both), on the same NH3 pixels (two copies of each in the batch),
-    rungs 1 and 2.
+    """``fit_batch`` of both packages in the traced mode
+    (``segment_iters=0``, the default of both, which
+    ``tests/test_torch_imports.py`` holds), on the same NH3 pixels (two
+    copies of each in the batch), rungs 1 and 2.
 
     Rung 1 is unimodal: the better of each package's two runs agree
     within combined errors, as in test_fit_batch_matches_jax.  At rung 2
@@ -169,15 +169,14 @@ def test_fit_batch_traced_matches_jax(cube, call):  # noqa: F811
     packages' runs clear the threshold by 3 nats and agree among
     themselves."""
     kw = dict(nlive=50, tol=1.0, init_factor=4)
-    mode = {"segment_iters": 0} if call == "segment_iters=0" else {}
     runs = {"port": {}, "jax": {}}
     for ncomp in (1, 2):
         jfit = jax_fit_batch(random.key(ncomp), _jax_runner(cube, ncomp), R,
-                             JaxConfig(**kw), **mode)
+                             JaxConfig(**kw), segment_iters=0)
         graphs.last_stats = graphs.TracedStats()
         tfit = fit_batch(torch.Generator().manual_seed(ncomp),
                          _port_runner(cube, ncomp), R, NSConfig(**kw),
-                         device="cpu", **mode)
+                         device="cpu", segment_iters=0)
         assert graphs.last_stats.blocks > 0     # the traced block loop ran
         assert tfit.ns.converged.all() and np.asarray(jfit.ns.converged).all()
         np.testing.assert_allclose(tfit.null_lnz.numpy(),
