@@ -746,10 +746,20 @@ def card_line() -> str:
 
 
 def kernel_counters():
+    """The kernels the timed ladder must launch."""
     from nestfit_tpu_torch.ops import fused, tables
 
     return {"hf_lnl_fused": fused.hf_lnl_fused,
-            "table_lerp": tables.table_lerp,
+            "prior_transform_fused": tables.prior_transform_fused}
+
+
+def split_counters():
+    """The per-prior path's K2 and K3, which the timed ladder must not
+    launch: every transform of the IRDC priors at ncomp 1 and 2 takes the
+    one-launch prior kernel, so a count above 0 is a rung that fell back."""
+    from nestfit_tpu_torch.ops import tables
+
+    return {"table_lerp": tables.table_lerp,
             "tapered_invert": tables.tapered_invert}
 
 
@@ -797,14 +807,14 @@ def main(argv=(), environ=None):
         f"{clock.remaining():.0f}s)")
 
     required = (s.n_pix, s.seed) == DEFAULT_CUBE    # gate (ii) must hold
-    counters = kernel_counters()
+    counters, idle = kernel_counters(), split_counters()
     seeds, scores = [], []
     peak = 0.0
     for seed in s.timed_seeds:
         if clock.remaining() - BASELINE_RESERVE_S <= TIMED_FLOOR_S:
             log(f"bench: no budget for the timed ladder of seed {seed}")
             break
-        for fn in counters.values():
+        for fn in (*counters.values(), *idle.values()):
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         sync(device)
@@ -821,6 +831,11 @@ def main(argv=(), environ=None):
         missing = [k for k, n in launches.items() if n <= 0]
         if missing:
             raise RuntimeError(f"the timed ladder launched no {missing}")
+        split = {k: int(fn.launches) for k, fn in idle.items()}
+        if any(split.values()):
+            raise RuntimeError(f"the timed ladder took the per-prior path: "
+                               f"{split}")
+        launches.update(split)
         mem = torch.cuda.max_memory_allocated() / 2**30
         peak = max(peak, mem)
         sc = score_ladder(setup, lad, elapsed)

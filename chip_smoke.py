@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
                PyTorch versions on the same CUDA tensors at main-path
                shapes, K2 ``table_lerp`` and K3 ``tapered_invert`` bit for
                bit (K3 at B = 3,200, 51,200 and 102,400 on what the IRDC
-               transform hands it), and time them (kernel, plain version,
+               transform's per-prior path hands it), the one-launch prior
+               transform ``prior_transform_fused`` bit for bit against its
+               plain version and the per-prior path at those widths (and
+               timed against that path), and time them (kernel, plain version,
                library call): device time per call from
                ``torch.profiler``, and per-call time with CUDA events in a
                loop of its own, which also counts host gaps between
@@ -153,8 +156,9 @@ Phases, in order; any failure exits non-zero:
                one engine-baseline pixel (``BENCH_CPU_PIXELS=1``): exit code
                0, its JSON line carrying every key of the bench's contract
                and the card, the selection and engine-agreement gates
-               passed, K1-K3 launched on the timed ladder (added to the
-               launch counts below).  The run's wall and rate are printed.
+               passed, K1 and the prior kernel launched on the timed
+               ladder (added to the launch counts below).  The run's wall
+               and rate are printed.
 15. profile -- only with ``--profile N``: the NH3 rung of ncomp N again,
                segmented and traced, under ``torch.profiler``: device time
                by kernel, busy share.
@@ -164,13 +168,14 @@ Phases, in order; any failure exits non-zero:
                nlive 100, one seed, traced, then ``outlier_postmortem
                .classify`` against the engine's nlive-400 truth.  Every lnZ
                finite, >= 98% of the runs converged and a run that did not
-               spent its death budget, K1-K3 launched (added to the launch
-               counts below), the |dz|/sigma median under ``bench_torch.py``'s
-               bar of 4.  Prints the wall, and the count and class of the
-               records beyond 10 sigma.
+               spent its death budget, K1 and the prior kernel launched
+               (added to the launch counts below), the |dz|/sigma median
+               under ``bench_torch.py``'s bar of 4.  Prints the wall, and
+               the count and class of the records beyond 10 sigma.
 17. probes  -- the sampler's progress lines and the probes of
                ``validation_torch/``, each with the kernels' launch
-               counters at 0 before it and K1-K3 risen after it: (a) a
+               counters at 0 before it and K1 and the prior kernel risen
+               after it: (a) a
                segmented NH3 rung 2 on 128 px of the bench cube with
                ``NESTFIT_NS_DEBUG``'s lines on (``sampler._NS_DEBUG``), every
                line of one of the JAX package's four kinds, and its lnZ
@@ -210,6 +215,7 @@ K1_COMPACT_ROWS = 64     # NSConfig.min_compact: the narrowest K1 launch
 # K3's launch widths T x R on the ladders: the compacted slice round,
 # the NH3/N2H+ and the Gaussian candidate rounds
 K3_WIDTHS = (50 * 64, 50 * 1024, 100 * 1024)
+PRIOR_THREADS = 128      # kThreads of csrc/prior_transform.cu
 # phase cube: the committed cutouts and their bright pixels and bars
 # (tests/test_fixture_cubes.py)
 FIXTURES = Path(__file__).resolve().parent / "tests" / "data"
@@ -318,10 +324,11 @@ def launch_floor():
 
 
 def capture_k3(utrans, u, ncomp):
-    """The K3 launches of ``utrans.transform(u, ncomp)``: a list of
-    ``(dist, u, x_lo, x_hi, sfact)``, copied as the transform hands them
-    over."""
+    """The K3 launches of ``utrans.transform(u, ncomp)`` on the per-prior
+    path: a list of ``(dist, u, x_lo, x_hi, sfact)``, copied as the
+    transform hands them over."""
     from nestfit_tpu_torch.ops import tables
+    from nestfit_tpu_torch.priors.priors import transform_per_prior
 
     k3, calls = tables.tapered_invert, []
 
@@ -333,7 +340,7 @@ def capture_k3(utrans, u, ncomp):
     record.launches = 0
     tables.tapered_invert = record
     try:
-        utrans.transform(u, ncomp)
+        transform_per_prior(utrans.priors, u, ncomp)
     finally:
         tables.tapered_invert = k3
     return calls
@@ -653,6 +660,54 @@ def phase_kernels(seed, n_sm, clock_hz):
                bound_ms=rec[f"bound_ms_{B}"])
     records["tapered_invert"] = rec
 
+    # ---- the one-launch prior transform at the IRDC priors' ncomp 2, at
+    # K3's widths, against its plain version (bit for bit) and against
+    # the per-prior path it replaces (its launches and its time)
+    from nestfit_tpu_torch.priors.priors import transform_per_prior
+
+    rec = dict(name="prior_transform_fused", route="cuda",
+               source="nestfit_tpu_torch/csrc/prior_transform.cu",
+               replaces="the per-prior chain of K2/K3 launches",
+               max_abs_err=0.0, bound_by="bytes", library_ms=None)
+    for B in K3_WIDTHS:
+        u = torch.as_tensor(rng.uniform(size=(B, 12)), dtype=torch.float32,
+                            device="cuda")
+        prog = utrans.program(2, u.device)
+        got = tables.prior_transform_fused(prog, u)
+        want = tables.prior_transform_plain(prog, u)
+        split = transform_per_prior(utrans.priors, u, 2)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, split)):
+            fail(f"prior_transform_fused B={B}: not the plain version and "
+                 "the per-prior path bit for bit")
+        ms, call = time_ms(lambda: tables.prior_transform_fused(prog, u), 50)
+        split_ms, split_call = time_ms(
+            lambda: transform_per_prior(utrans.priors, u, 2), 20)
+        k0 = tables.table_lerp.launches + tables.tapered_invert.launches
+        transform_per_prior(utrans.priors, u, 2)
+        k23 = tables.table_lerp.launches + tables.tapered_invert.launches \
+            - k0
+        # the row in and out, and each block's copy of the cells table
+        # (32 N bytes), counted at HBM's rate though L2 serves all but
+        # the first; the ppf tables (4 N bytes each) are read once
+        packed = prog.packed
+        n_blocks = -(-B // PRIOR_THREADS)
+        n_bytes = 8 * u.shape[1] * B + 32 * packed.n_cells * n_blocks \
+            + sum(4 * packed.ops[k].n for k in range(packed.n_op))
+        bound = n_bytes / HBM_BYTES_PER_S * 1e3
+        rec.update({f"ms_{B}": ms, f"call_ms_{B}": call,
+                    f"bound_ms_{B}": bound, f"split_ms_{B}": split_ms,
+                    f"split_call_ms_{B}": split_call, "split_k2_k3": k23})
+        print(f"prior_transform_fused B={B}: bit for bit; kernel {ms:.4f} "
+              f"ms (per call {call:.4f} ms), bound {bound:.5f} ms "
+              f"({n_bytes} B); per-prior path {split_ms:.4f} ms of device "
+              f"time (per call {split_call:.4f} ms, {k23} K2/K3 launches)",
+              flush=True)
+    B = K3_WIDTHS[1]
+    rec.update(ms=rec[f"ms_{B}"], plain_ms=None,
+               bound_ms=rec[f"bound_ms_{B}"])
+    records["prior_transform_fused"] = rec
+
     # ---- K4 at the Gaussian ladder's candidate round: D <= 6 gives
     # kill_k = nlive / 2 = 50, so T = n_cand = 100; R = 1024, S = 380
     from nestfit_tpu_torch.constants import CKMS
@@ -912,7 +967,7 @@ def run_rung(label, gen_seed, runner, n_pix, cfg, counters, need, idle,
 
 def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
     """``fit_batch`` rungs ncomp 1 then 2 on ``runner_for(ncomp)``
-    (:func:`run_rung`); the kernels in ``need`` (and K3 on rung 2) must
+    (:func:`run_rung`); the kernels in ``need`` must
     have risen and those in ``idle`` stayed at 0.  Returns ``(lnz by
     ncomp, launches by ncomp, lnz errors by ncomp)``."""
     from nestfit_tpu_torch.sampling import NSConfig
@@ -922,7 +977,7 @@ def run_ladder(label, runner_for, n_pix, seed, counters, need, idle):
         fit, launches[ncomp] = run_rung(
             f"{label} rung ncomp={ncomp} R={n_pix}", seed + ncomp,
             runner_for(ncomp), n_pix, NSConfig(**LADDER), counters,
-            need + (["tapered_invert"] if ncomp == 2 else []), idle)
+            need, idle)
         lnz[ncomp] = fit.lnz.cpu().numpy()
         errs[ncomp] = fit.lnz_err.cpu().numpy()
     return lnz, launches, errs
@@ -941,7 +996,7 @@ def phase_ladder(seed, n_pix, counters, keep=None):
     lnz, launches, errs = run_ladder(
         "ladder", lambda ncomp: make_runner(
             (xa11, xa22), (d11, d22), noise, ncomp, utrans),
-        n_pix, seed, counters, ["hf_lnl_fused", "table_lerp"],
+        n_pix, seed, counters, ["hf_lnl_fused", "prior_transform_fused"],
         ["gauss_chi2_fused", "hf_chi2_fused"])
     gain = lnz[2] - lnz[1]
     print(f"ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
@@ -963,7 +1018,8 @@ def phase_gauss_ladder(seed, n_pix, counters):
     lnz, launches, _ = run_ladder(
         "gauss ladder", lambda ncomp: make_gauss_runner(
             xarr, rest, data, ncomp, utrans),
-        n_pix, seed, counters, ["gauss_chi2_fused", "table_lerp"],
+        n_pix, seed, counters,
+        ["gauss_chi2_fused", "prior_transform_fused"],
         ["hf_chi2_fused", "hf_lnl_fused"])
     gain = lnz[2] - lnz[1]
     g1, g2 = np.median(gain[truth == 1]), np.median(gain[truth == 2])
@@ -991,7 +1047,7 @@ def phase_n2hp_ladder(seed, n_pix, counters):
     lnz, launches, _ = run_ladder(
         "n2h+ ladder", lambda ncomp: make_n2hp_runner(
             [(1, xarr, data)], ncomp, utrans),
-        n_pix, seed, counters, ["hf_lnl_fused", "table_lerp"],
+        n_pix, seed, counters, ["hf_lnl_fused", "prior_transform_fused"],
         ["gauss_chi2_fused", "hf_chi2_fused"])
     gain = lnz[2] - lnz[1]
     print(f"n2h+ ladder: median lnZ2 - lnZ1 = {np.median(gain):.3f} over "
@@ -1075,8 +1131,7 @@ def phase_traced(seed, counters, ladder, keep=None):
     runs, fits = [], {}
     for ncomp in (1, 2):
         label = f"traced rung ncomp={ncomp} R={n_pix}"
-        need = ["hf_lnl_fused", "table_lerp"] \
-            + (["tapered_invert"] if ncomp == 2 else [])
+        need = ["hf_lnl_fused", "prior_transform_fused"]
         fits[ncomp], launches = run_rung(
             label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
             counters, need, ["gauss_chi2_fused", "hf_chi2_fused"],
@@ -1126,7 +1181,7 @@ def phase_traced(seed, counters, ladder, keep=None):
         _, launches = run_rung(
             f"traced knob {json.dumps(kw)} rung ncomp=1 R={n_small}",
             seed + 1, nh3(1, n_small), n_small, config(1, **kw), counters,
-            ["hf_lnl_fused", "table_lerp"],
+            ["hf_lnl_fused", "prior_transform_fused"],
             ["gauss_chi2_fused", "hf_chi2_fused"], segment_iters=0)
         runs.append(launches)
     xarr, rest, data, _ = gauss_cube(n_small,
@@ -1135,7 +1190,8 @@ def phase_traced(seed, counters, ladder, keep=None):
     _, launches = run_rung(
         f"traced gauss rung ncomp=2 R={n_small}", seed + 2,
         make_gauss_runner(xarr, rest, data, 2, g_utrans), n_small,
-        NSConfig(**LADDER), counters, ["gauss_chi2_fused", "table_lerp"],
+        NSConfig(**LADDER), counters,
+        ["gauss_chi2_fused", "prior_transform_fused"],
         ["hf_chi2_fused", "hf_lnl_fused"], segment_iters=0)
     runs.append(launches)
 
@@ -1205,8 +1261,8 @@ def traced_entry_points(seed, counters, utrans, direct, xa, data, noise):
           f"loglikelihood (NumPy) equal: {same_host}, launches "
           f"{json.dumps(used)}", flush=True)
     if not (same and same_host) or not all(
-            used[k] > 0 for k in ("hf_lnl_fused", "table_lerp",
-                                  "tapered_invert")) \
+            used[k] > 0 for k in ("hf_lnl_fused",
+                                  "prior_transform_fused")) \
             or used["gauss_chi2_fused"]:
         fail("traced (e): from_data or loglikelihood is not the direct "
              "runner's likelihood through its kernels")
@@ -1387,8 +1443,7 @@ def check_cube(label, fitter, batches, valid_ix):
     for b in batches:
         for r in b.rungs:
             n_refit += check_refits(label, fitter, b, r, recs)
-            need = ["hf_lnl_fused", "table_lerp"] + (
-                ["tapered_invert"] if r["ncomp"] == 2 else [])
+            need = ["hf_lnl_fused", "prior_transform_fused"]
             if any(r["launches"][k] <= 0 for k in need) or \
                     r["launches"]["gauss_chi2_fused"] or \
                     r["launches"]["hf_chi2_fused"]:
@@ -1827,8 +1882,7 @@ def mesh_dp(seed, counters, traced):
         label = f"mesh dp=2 {mode} rung ncomp={ncomp} R={n_pix}"
         fit, launches = run_rung(
             label, seed + ncomp, nh3(ncomp, n_pix), n_pix, config(ncomp),
-            counters, ["hf_lnl_fused", "table_lerp"]
-            + (["tapered_invert"] if ncomp == 2 else []),
+            counters, ["hf_lnl_fused", "prior_transform_fused"],
             ["gauss_chi2_fused", "hf_chi2_fused"],
             segment_iters=segment_iters, mesh=mesh)
         runs.append(launches)
@@ -1923,7 +1977,7 @@ def mesh_sp(seed, counters):
             k1 = ["hf_chi2_fused", "hf_lnl_fused"][::1 if m else -1]
             fit, launches = run_rung(
                 label, seed + 2, runner, GRAPH_PIXELS, cfg, counters,
-                [k1[0], "table_lerp", "tapered_invert"],
+                [k1[0], "prior_transform_fused"],
                 ["gauss_chi2_fused", k1[1]], segment_iters=segment_iters,
                 mesh=m)
             runs.append(launches)
@@ -1950,6 +2004,7 @@ def host_worker(rank, world, address, out, seed):
                 "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
+                "prior_transform_fused": tables.prior_transform_fused,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
     initialize_distributed(address, world, rank)
     stack, fitter, valid_ix = fixture_case()
@@ -2057,8 +2112,8 @@ def mesh_varnoise(counters):
               f"nbest_bic {out['nbest_bic'].mean(axis=1).round(3).tolist()}, "
               f"kernels {json.dumps(launches)}", flush=True)
         if not np.isfinite(out["lnz"]).all() or \
-                any(launches[k] <= 0 for k in ("hf_lnl_fused", "table_lerp",
-                                               "tapered_invert")):
+                any(launches[k] <= 0 for k in ("hf_lnl_fused",
+                                               "prior_transform_fused")):
             fail(f"mesh varnoise {label}: non-finite lnZ or a kernel never "
                  "launched")
         if kw:
@@ -2212,6 +2267,7 @@ def aot_worker(mode, out, seed):
                 "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
+                "prior_transform_fused": tables.prior_transform_fused,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
     runners, configs = aot_setup(seed)
     prepared = mode == "prepared"
@@ -2222,8 +2278,8 @@ def aot_worker(mode, out, seed):
         name = f"aot {mode} {label}"
         f, launches = run_rung(
             name, seed + ncomp, runners[ncomp], TRACED_PIXELS,
-            configs[ncomp], counters, ["hf_lnl_fused", "table_lerp"]
-            + (["tapered_invert"] if ncomp == 2 else []),
+            configs[ncomp], counters,
+            ["hf_lnl_fused", "prior_transform_fused"],
             ["gauss_chi2_fused", "hf_chi2_fused"],
             segment_iters=segment_iters,
             prepared=prepared and segment_iters == 0)
@@ -2284,6 +2340,7 @@ def phase_aot(seed):
     import pickle
     import tempfile
 
+    from nestfit_tpu_torch.ops import _build
     from nestfit_tpu_torch.sampling import NSConfig
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_aot_"))
@@ -2338,7 +2395,8 @@ def phase_aot(seed):
         names = [r["name"] for r in rep["programs"]]
         build = rep["programs"][0]
         if rep["n_errors"] or names[0] != "build" or \
-                build["cache_hits"] + build["cache_misses"] != 4:
+                build["cache_hits"] + build["cache_misses"] \
+                != len(_build.SOURCES):
             fail(f"aot {name}: report {json.dumps(rep)}")
     seg = [r["name"] for r in prep["reports"]["segmented"]["programs"]]
     if seg != ["build", "warm@cuda:0"]:
@@ -2541,8 +2599,8 @@ def phase_bench():
     """Phase *bench*: ``bench_torch.py --fast`` in a process of its own
     (segmented, one timed seed, one engine-baseline pixel).  Fails unless
     it exits 0 with a JSON line that holds every key, the card, passed
-    selection and engine gates and K1-K3 launches on the timed ladder.
-    Returns those launches."""
+    selection and engine gates, launches of K1 and the prior kernel on the
+    timed ladder and none of K2 or K3 there.  Returns those launches."""
     env = dict(os.environ, BENCH_TIMED_SEEDS="5", BENCH_CPU_PIXELS="1",
                BENCH_SEGMENT_ITERS="250")
     script = Path(__file__).resolve().parent / "bench_torch.py"
@@ -2572,8 +2630,11 @@ def phase_bench():
     if not (gates["selection"] and gates["engine"]) or not res["card"]:
         fail(f"bench: gates {gates}, card {res['card']!r}")
     launches = {k: sum(r[k] for r in res["launches"])
-                for k in ("hf_lnl_fused", "table_lerp", "tapered_invert")}
-    if min(launches.values()) <= 0 or len(res["seeds"]) != 1:
+                for k in ("hf_lnl_fused", "prior_transform_fused",
+                          "table_lerp", "tapered_invert")}
+    if min(launches["hf_lnl_fused"], launches["prior_transform_fused"]) <= 0 \
+            or launches["table_lerp"] or launches["tapered_invert"] \
+            or len(res["seeds"]) != 1:
         fail(f"bench: launches {launches}, {len(res['seeds'])} timed seeds")
     sd = res["seeds"][0]
     print(f"bench: process wall {wall:.1f} s; {res['value']} "
@@ -2591,7 +2652,8 @@ def phase_validation(counters):
     artifact's first ``VALIDATION_PIXELS`` pixels (padded to
     ``VALIDATION_ROWS`` rows; nlive 100, seed 0, traced), classified against
     the native truth.  Fails on a non-finite lnZ, fewer than 98% converged
-    runs or a stalled one, a K1-K3 counter that did not rise, or a
+    runs or a stalled one, a K1 or prior-kernel counter that did not rise,
+    or a
     |dz|/sigma median at or above ``bench_torch.NT_DZ_MEDIAN``.  Returns
     the launches."""
     import torch
@@ -2625,7 +2687,7 @@ def phase_validation(counters):
     if n_conv < CONVERGED_SHARE * n_runs or n_short:
         fail(f"validation: {n_runs - n_conv} of {n_runs} runs not converged "
              f"({n_short} short of the death budget)")
-    for k in ("hf_lnl_fused", "table_lerp", "tapered_invert"):
+    for k in ("hf_lnl_fused", "prior_transform_fused"):
         if launches[k] <= 0:
             fail(f"validation: kernel {k} never launched")
     rows, outliers, _ = pm.classify(nat, rec, "gpu")
@@ -2653,7 +2715,8 @@ def phase_probes(counters):
     ``mode_loss_probe`` at ``lhs,iid`` and (c) one ``iter_cost_sweep``
     ladder at ``50,2``, both traced at ``PROBE_PIXELS`` px.  Fails on a
     line of no kind, an lnZ off by more than ``PROBE_LNZ_RTOL`` relative,
-    a non-finite lnZ or a K1-K3 counter that did not rise.  Returns the
+    a non-finite lnZ or a K1 or prior-kernel counter that did not rise.
+    Returns the
     launches of the three."""
     import torch
     import bench_torch
@@ -2673,7 +2736,7 @@ def phase_probes(counters):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: int(fn.launches) for k, fn in counters.items()}
-        for k in ("hf_lnl_fused", "table_lerp", "tapered_invert"):
+        for k in ("hf_lnl_fused", "prior_transform_fused"):
             if launches[k] <= 0:
                 fail(f"probes {label}: kernel {k} never launched")
         for k in total:
@@ -2847,6 +2910,7 @@ def main():
                 "hf_lnl_fused": fused.hf_lnl_fused,
                 "table_lerp": tables.table_lerp,
                 "tapered_invert": tables.tapered_invert,
+                "prior_transform_fused": tables.prior_transform_fused,
                 "gauss_chi2_fused": fused.gauss_chi2_fused}
     # launches on the main paths: every rung of the three ladders and
     # both cases of the cube phase

@@ -10,9 +10,8 @@
 //
 // Exactness: the blend is rounded after every operation, as the plain
 // version (ops/tables.py::table_lerp_plain) rounds it, so the two agree
-// bit for bit.  nvcc would otherwise contract it into an FMA, rounded
-// once instead of twice; the intrinsics below forbid that here without
-// -fmad=false for every kernel.
+// bit for bit (prior_tables.cuh::lerp, the one copy of the arithmetic,
+// which the whole-transform kernel prior_transform.cu shares).
 //
 // Bound on the H100: memory.  Each element reads 4 bytes and writes 4
 // (8 B per element).  One thread per element; the table (2 KB at N = 500)
@@ -22,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "prior_tables.cuh"
+
 namespace {
 
 __global__ void table_lerp_kernel(const float* __restrict__ table, int N,
@@ -30,13 +31,7 @@ __global__ void table_lerp_kernel(const float* __restrict__ table, int N,
   const long long i =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  const float top = static_cast<float>(N - 1);
-  float s = scaled[i];
-  s = s < 0.0f ? 0.0f : (s > top ? top : s);
-  const int lo = min(static_cast<int>(s), N - 2);   // s >= 0: trunc = floor
-  const float f = __fsub_rn(s, static_cast<float>(lo));
-  out[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, f), __ldg(table + lo)),
-                     __fmul_rn(f, __ldg(table + lo + 1)));
+  out[i] = prior_tables::lerp(table, N, scaled[i]);
 }
 
 }  // namespace

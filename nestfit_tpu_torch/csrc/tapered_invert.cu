@@ -55,55 +55,18 @@
 //   stay.
 // 128-thread blocks, one element per thread and no grid cap spread a
 // compacted B = 3,200 over 25 SMs.
+//
+// The element arithmetic (the Tapered struct, the search, the staging)
+// is prior_tables.cuh's, the one copy that the whole-transform kernel
+// prior_transform.cu shares.
 
 #include <cuda_runtime.h>
 
+#include "prior_tables.cuh"
+
 namespace {
 
-constexpr float kTiny = 1e-30f;
 constexpr int kThreads = 128;
-constexpr int kStage = 4;   // table rows a thread copies at once
-
-template <int SF>
-struct Tapered {
-  const float4* cells;   // the block's copy in shared memory
-  int i_lo, i_hi, side;  // side: 0 cumulative tables, 1 tail tables
-  bool degen;
-  float ch, t0_lo, t1_lo, t2_lo, total;
-
-  // the table row G(j) reads: j clamped into [i_lo, i_hi - 1]
-  __device__ float4 row(int j) const {
-    const int c = j < i_lo ? i_lo : (j > i_hi - 1 ? i_hi - 1 : j);
-    return cells[2 * c + side];
-  }
-
-  // G(j) before normalisation, from its row c = row(j)
-  __device__ float raw(const float4 c) const {
-    const float d0 = __fsub_rn(c.x, t0_lo);
-    if (SF == 0) return d0;
-    const float d1 = __fsub_rn(c.y, t1_lo);
-    if (SF == 1) return __fsub_rn(__fmul_rn(ch, d0), d1);
-    const float d2 = __fsub_rn(c.z, t2_lo);
-    // ch * ch * d0 - 2 * ch * d1 + d2, left to right
-    return __fadd_rn(__fsub_rn(__fmul_rn(__fmul_rn(ch, ch), d0),
-                               __fmul_rn(__fmul_rn(2.0f, ch), d1)),
-                     d2);
-  }
-
-  __device__ float norm(int j) const {
-    if (j < i_lo) return 0.0f;
-    if (j >= i_hi) return 1.0f;
-    if (degen) return 1.0f;
-    return __fdiv_rn(raw(row(j)), total);
-  }
-
-  // norm(j) < u, exactly, without the divide: lim = total * m
-  __device__ bool below(int j, float uu, double lim) const {
-    if (j < i_lo) return 0.0f < uu;
-    if (j >= i_hi || degen) return 1.0f < uu;
-    return static_cast<double>(raw(row(j))) < lim;
-  }
-};
 
 template <int SF>
 __global__ void __launch_bounds__(kThreads)
@@ -118,69 +81,15 @@ tapered_invert_kernel(const float4* __restrict__ cells_g,
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const bool live = e < B;
   // the element's inputs, then the copy of the table, all in flight at
-  // once: kStage rows a thread before the first store waits on any
+  // once
   const float lo_in = live ? x_lo[e] : 0.0f;
   const float hi_in = live ? x_hi[e] : 0.0f;
   const float u_in = live ? u[e] : 1.0f;
-  const int rows = 2 * N;
-  for (int base = threadIdx.x; base < rows; base += kStage * kThreads) {
-    float4 r[kStage];
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int k = base + i * kThreads;
-      if (k < rows) r[i] = __ldg(cells_g + k);
-    }
-#pragma unroll
-    for (int i = 0; i < kStage; ++i) {
-      const int k = base + i * kThreads;
-      if (k < rows) cells[k] = r[i];
-    }
-  }
+  prior_tables::stage_rows<kThreads>(cells, cells_g, 2 * N);
   __syncthreads();
   if (!live) return;
-  const float a = fminf(lo_in, hi_in);
-  const float b = fmaxf(lo_in, hi_in);
-  Tapered<SF> g;
-  g.cells = cells;
-  // trunc toward zero, as the plain version's .to(int64)
-  int i_lo = static_cast<int>(__fdiv_rn(__fsub_rn(a, xmin), dx));
-  i_lo = i_lo < 0 ? 0 : (i_lo > N - 1 ? N - 1 : i_lo);
-  int i_hi = static_cast<int>(__fdiv_rn(__fsub_rn(b, xmin), dx));
-  if (i_hi == i_lo) i_hi = i_lo + 1;
-  i_hi = i_hi < 1 ? 1 : (i_hi > N ? N : i_hi);
-  g.i_lo = i_lo;
-  g.i_hi = i_hi;
-  g.degen = (i_hi - i_lo) == 1;
-  g.ch = __fsub_rn(static_cast<float>(i_hi), center);
-  g.side = -cells[2 * i_lo + 1].x < cells[2 * i_lo].x ? 1 : 0;
-  const float4 c_lo = cells[2 * i_lo + g.side];
-  g.t0_lo = c_lo.x;
-  g.t1_lo = c_lo.y;
-  g.t2_lo = c_lo.z;
-  g.total = fmaxf(g.raw(g.row(i_hi - 1)), kTiny);
-
-  const float uu = fmaxf(u_in, kTiny);
-  const float pu = nextafterf(uu, 0.0f);
-  const double lim = __dmul_rn(
-      static_cast<double>(g.total),
-      __dmul_rn(0.5, __dadd_rn(static_cast<double>(pu),
-                               static_cast<double>(uu))));
-  // lower bound: first j in [0, N-1] with G(j) >= u
-  int lo_j = 0, hi_j = N - 1;
-  for (int p = 0; p < n_probe; ++p) {
-    const int mid = (lo_j + hi_j) >> 1;
-    if (g.below(mid, uu, lim)) {
-      lo_j = mid + 1;
-    } else {
-      hi_j = mid;
-    }
-  }
-  const int ih = lo_j < 1 ? 1 : (lo_j > N - 1 ? N - 1 : lo_j);
-  const float y_lo = g.norm(ih - 1);
-  const float y_hi = g.norm(ih);
-  const float denom = fmaxf(__fsub_rn(y_hi, y_lo), kTiny);
-  out[e] = __fadd_rn(cells[2 * (ih - 1)].w,
-                     __fmul_rn(__fsub_rn(uu, y_lo), __fdiv_rn(dx, denom)));
+  out[e] = prior_tables::tapered_invert<SF>(cells, N, n_probe, u_in, lo_in,
+                                            hi_in, xmin, dx, center);
 }
 
 }  // namespace
@@ -207,8 +116,7 @@ extern "C" int tapered_invert_launch(const void* cells, const float* u,
       reinterpret_cast<size_t>(cells) % sizeof(float4) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * sizeof(float4) * static_cast<size_t>(N);
-  int n_probe = 0;
-  while ((1 << n_probe) < N) ++n_probe;   // ceil(log2 N)
+  const int n_probe = prior_tables::probes(N);
   const float4* c = static_cast<const float4*>(cells);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned g = static_cast<unsigned>(blocks);

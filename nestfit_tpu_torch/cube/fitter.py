@@ -118,8 +118,9 @@ def host_share(pixel_ix, seed, pi=0, pc=1):
 
 def _log_batch(chunk, tr):
     """Log a batch's trace: its wall, the sampler's counters, K1's
-    likelihood launches (one-launch and per-transition) and the host
-    reads by layer (count, seconds waited)."""
+    likelihood launches (one-launch and per-transition), the prior
+    transforms (one-launch and per-prior) and the host reads by layer
+    (count, seconds waited)."""
     reads = {}
     for site, (c, w) in tr.syncs.items():
         layer = site.split(".")[0]
@@ -130,10 +131,12 @@ def _log_batch(chunk, tr):
     n = tr.counters
     log.info("batch %d: %.1fs, %d iterations in %d segments (%d blocks, "
              "%d compactions), K1 lnL launches %d one-launch, %d "
-             "per-transition, host reads %s", chunk, wall,
+             "per-transition, prior transforms %d one-launch, %d "
+             "per-prior, host reads %s", chunk, wall,
              n.get("ns.iterations", 0), n.get("ns.segments", 0),
              n.get("ns.blocks", 0), n.get("ns.compactions", 0),
              n.get("k1.lnl_fused", 0), n.get("k1.lnl_split", 0),
+             n.get("prior.fused", 0), n.get("prior.split", 0),
              ", ".join(f"{k} {c} ({w / 1e9:.2f}s)"
                        for k, (c, w) in sorted(reads.items())))
 

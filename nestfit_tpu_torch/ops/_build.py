@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("hf_chi2.cu", "table_lerp.cu", "tapered_invert.cu",
-           "gauss_chi2.cu")
+           "gauss_chi2.cu", "prior_transform.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

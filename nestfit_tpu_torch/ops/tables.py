@@ -1,20 +1,34 @@
 """Prior table lookups: kernels K2 (``csrc/table_lerp.cu``) and K3
-(``csrc/tapered_invert.cu``).
+(``csrc/tapered_invert.cu``), and the whole prior transform in one launch
+(``csrc/prior_transform.cu``).
 
-Ports of ``nestfit_tpu/ops/tables.py::table_lerp`` and
-``::tapered_invert``.  Each wrapper launches its Hopper kernel for CUDA
-tensors and runs the plain PyTorch version beside it for CPU tensors.
+K2 and K3 are ports of ``nestfit_tpu/ops/tables.py::table_lerp`` and
+``::tapered_invert``.  :func:`prior_transform_fused` runs a packed prior
+transformer (:func:`pack_program`: the priors' op codes, rows, tables and
+constants) over a batch of unit-cube rows in one launch, with K2's and
+K3's arithmetic (``csrc/prior_tables.cuh``, one copy for the three
+kernels).  Each wrapper launches its Hopper kernel for CUDA tensors and
+runs the plain PyTorch version beside it for CPU tensors.
 """
 
 import ctypes
+import dataclasses
 import math
 
 import torch
 
+from nestfit_tpu_torch.device import same_device
 from nestfit_tpu_torch.ops import _build
 
 LERP_SOURCE = "table_lerp.cu"
 TAPER_SOURCE = "tapered_invert.cu"
+PRIOR_SOURCE = "prior_transform.cu"
+MAX_OPS = 16       # kMaxOps in prior_transform.cu
+MAX_VALS = 48      # kMaxVals: parameters a row, n_param * ncomp
+MAX_PLACED = 3     # kMaxPlaced: components a placement takes (sfact <= 2)
+MAX_CELLS = 1536   # K3's shared-memory table (its launcher's limit)
+# the op codes of prior_transform.cu
+PPF, DUPLICATE, CONSTANT, PLACEMENT = range(4)
 
 
 # table, N, scaled, out, B, device, stream
@@ -173,3 +187,175 @@ def tapered_invert(dist, u, x_lo, x_hi, sfact: int):
 
 
 tapered_invert.launches = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorOp:
+    """One prior of a packed transform: ``code`` (``PPF``, ``DUPLICATE``,
+    ``CONSTANT``, ``PLACEMENT``), the parameter ``row`` it writes,
+    ``row2`` (a duplicate's second row; the placement's width row), its
+    ``dist`` (a ``priors.distributions.Distribution``; the placement's
+    centroid distribution) and ``value`` (a constant's value; the
+    placement's ``sep_scale``)."""
+
+    code: int
+    row: int
+    row2: int = -1
+    dist: object = None
+    value: float = 0.0
+
+
+class _PriorOp(ctypes.Structure):
+    """``PriorOp`` of ``prior_transform.cu``."""
+    _fields_ = [("table", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("code", "row", "row2", "n")] + [
+        (n, ctypes.c_float) for n in ("value", "xmin", "xmax", "v_range",
+                                      "dx", "center")]
+
+
+class _PriorProgram(ctypes.Structure):
+    """``PriorProgram`` of ``prior_transform.cu``."""
+    _fields_ = [("cells", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("n_cells", "n_op", "n_param",
+                                    "ncomp")] + [
+        ("ops", _PriorOp * MAX_OPS)]
+
+
+@dataclasses.dataclass(frozen=True)
+class PriorProgram:
+    """A prior transformer packed for :func:`prior_transform_fused` at one
+    ``ncomp`` on one ``device``: its ``ops`` in order, and ``packed``, the
+    kernel's by-value program (the tables' addresses, each constant as the
+    float32 the plain operations round it to).  It holds the ops'
+    distributions, so the tables it points at live as long as it does."""
+
+    ops: tuple
+    n_param: int
+    ncomp: int
+    device: torch.device
+    packed: _PriorProgram
+
+
+def pack_program(ops, n_param: int, ncomp: int, device):
+    """Pack ``ops`` (a sequence of :class:`PriorOp`) for rows of
+    ``n_param * ncomp`` values on ``device``, or ``None`` where the
+    one-launch kernel does not take them: more than ``MAX_OPS`` ops or
+    ``MAX_VALS`` values a row, a placement past ``MAX_PLACED``
+    components, a second placement (the kernel stages one cells table),
+    a placement table past ``MAX_CELLS`` (from ncomp 2, where K3 reads
+    it), or a table that is not float32 on ``device``."""
+    device = torch.device(device)
+    ops = tuple(ops)
+    placed = [op for op in ops if op.code == PLACEMENT]
+    if not 1 <= len(ops) <= MAX_OPS or n_param * ncomp > MAX_VALS \
+            or len(placed) > 1 \
+            or (placed and (ncomp > MAX_PLACED or ncomp > 1 and not
+                            2 <= placed[0].dist.size <= MAX_CELLS)):
+        return None
+    for op in ops:
+        if op.dist is None:
+            continue
+        for t in (op.dist.ppf, op.dist.cells):
+            if t.dtype != torch.float32 or not t.is_contiguous() \
+                    or not same_device(t.device, device):
+                return None
+    prog = _PriorProgram(n_op=len(ops), n_param=n_param, ncomp=ncomp)
+    for k, op in enumerate(ops):
+        c = prog.ops[k]
+        c.code, c.row, c.row2, c.value = op.code, op.row, op.row2, op.value
+        if op.dist is not None:
+            d = op.dist
+            c.table, c.n = d.ppf.data_ptr(), d.size
+            c.xmin, c.xmax, c.dx, c.center = d.xmin, d.xmax, d.dx, d.center
+            c.v_range = d.xmax - d.xmin
+        if op.code == PLACEMENT and ncomp > 1:
+            prog.cells, prog.n_cells = op.dist.cells.data_ptr(), op.dist.size
+    return PriorProgram(ops, n_param, ncomp, device, prog)
+
+
+def _placement_plain(op: PriorOp, c: _PriorOp, th, C: int):
+    """The kernel's placement step on ``th`` ``[B, n_param, C]``, in
+    PyTorch: the plain operations of ``ResolvedPlacementPrior.apply``
+    with the packed float32 constants ``c``."""
+    u = th[:, op.row, :].clone()
+    if C == 1:
+        th[:, op.row, 0] = table_lerp_plain(
+            op.dist.ppf, (u[:, 0] * (c.n - 1)).contiguous())
+        return
+    sig = th[:, op.row2, :]
+    seps = [torch.zeros_like(u[:, 0])]
+    seps += [torch.sqrt(sig[:, i] * sig[:, i - 1]) * c.value
+             for i in range(1, C)]
+    sep_tot = seps[1]
+    for s in seps[2:]:
+        sep_tot = sep_tot + s
+    # shrink to fit: v_range / sep_tot, as PyTorch divides a float by a
+    # tensor
+    factor = torch.where(sep_tot > c.v_range,
+                         torch.reciprocal(sep_tot) * c.v_range, 1.0)
+    sep_tot = sep_tot * factor
+    v_lo = torch.full_like(sep_tot, c.xmin)
+    v_hi = c.xmax - sep_tot
+    for i in range(C):
+        sep = seps[i] * factor
+        v_lo = v_lo + sep
+        v_hi = v_hi + sep
+        v = tapered_invert_plain(op.dist, u[:, i].contiguous(), v_lo, v_hi,
+                                 C - 1 - i)
+        th[:, op.row, i] = v
+        v_lo = v
+
+
+def prior_transform_plain(program: PriorProgram, u):
+    """Plain version of :func:`prior_transform_fused`: the packed ops in
+    order over ``th`` ``[B, n_param, ncomp]``, through K2's and K3's plain
+    versions, with the packed float32 constants."""
+    C = program.ncomp
+    th = u.reshape(u.shape[0], program.n_param, C).clone()
+    for op, c in zip(program.ops, program.packed.ops):
+        if op.code == CONSTANT:
+            th[:, op.row, :] = c.value
+        elif op.code == PLACEMENT:
+            _placement_plain(op, c, th, C)
+        else:
+            v = table_lerp_plain(op.dist.ppf,
+                                 (th[:, op.row, :] * (c.n - 1)).contiguous())
+            th[:, op.row, :] = v
+            if op.code == DUPLICATE:
+                th[:, op.row2, :] = v
+    return th.reshape(u.shape)
+
+
+_PRIOR_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def prior_transform_fused(program: PriorProgram, u):
+    """The prior transform of the unit-cube rows ``u``
+    ``[B, n_param * ncomp]`` (parameter-major), every prior of
+    ``program`` in order.  CUDA tensors: one launch (float32, contiguous,
+    on the program's device); CPU tensors take the plain version."""
+    B, D = u.shape
+    if D != program.n_param * program.ncomp:
+        raise ValueError(f"prior_transform_fused: rows of {D} values, the "
+                         f"program takes {program.n_param * program.ncomp}")
+    if u.device.type == "cpu":
+        _build.count_call(prior_transform_fused)
+        return prior_transform_plain(program, u)
+    dev = u.device
+    if not same_device(dev, program.device):
+        raise ValueError(f"prior_transform_fused: rows on {dev}, the "
+                         f"program's tables on {program.device}")
+    _check("prior_transform_fused", dev, [("u", u)])
+    out = torch.empty_like(u)
+    fn = _build.function(PRIOR_SOURCE, "prior_transform_launch",
+                         _PRIOR_ARGS)
+    rc = fn(ctypes.addressof(program.packed), u.data_ptr(), out.data_ptr(),
+            B, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "prior_transform_fused")
+    _build.count_launch(prior_transform_fused)
+    return out
+
+
+prior_transform_fused.launches = 0
+prior_transform_fused.counter = "prior.fused"

@@ -11,11 +11,20 @@ its unit-cube row after writing part of it reads a copy.  Every table
 lookup goes through K2 (``ppf_interp``) or K3
 (``tapered_interval_invert``); ``plain=True`` takes their plain PyTorch
 versions on any device.
+
+:meth:`PriorTransformer.transform` runs a transformer whose priors are
+all :class:`Prior`, :class:`DuplicatePrior`, :class:`ConstantPrior` or
+:class:`ResolvedPlacementPrior` (the last at ncomp <= 3) in one launch of
+``ops.tables.prior_transform_fused`` (its plain version on the CPU), the
+same float32 operations in one kernel; any other transformer takes the
+per-prior path, :func:`transform_per_prior`.
 """
 
 import torch
 
 from nestfit_tpu_torch.constants import FWHM
+from nestfit_tpu_torch.ops import _build
+from nestfit_tpu_torch.ops import tables as table_ops
 from nestfit_tpu_torch.priors.distributions import (
     Distribution,
     cdf_interp,
@@ -269,27 +278,51 @@ class PriorTransformer:
         self.priors = priors
         self.n_prior = len(priors)
         self.n_param = sum(p.n_param for p in priors)
+        self._programs = {}
+
+    def __getstate__(self):
+        # a copy packs its own programs: they hold table addresses
+        return {**self.__dict__, "_programs": {}}
 
     def to(self, device) -> "PriorTransformer":
         """Move every table to ``device`` (in place); returns self."""
         for p in self.priors:
             p.to(device)
+        self._programs = {}
         return self
+
+    def program(self, ncomp: int, device):
+        """The transformer packed for ``ops.tables.prior_transform_fused``
+        at ``ncomp`` on ``device`` (once a pair), or ``None`` where it
+        takes the per-prior path: a prior of another class, or what
+        ``pack_program`` refuses (a placement past ncomp 3, its dense
+        form, among them)."""
+        key = (str(device), int(ncomp))
+        if key not in self._programs:
+            ops = _pack_ops(self.priors)
+            self._programs[key] = None if ops is None else \
+                table_ops.pack_program(ops, self.n_param, ncomp, device)
+        return self._programs[key]
 
     def transform(self, utheta, ncomp: int, plain: bool = False):
         """``u[..., n_param*ncomp]`` -> ``theta[..., n_param*ncomp]``.
 
-        ``plain=True`` uses the plain PyTorch versions of the table
-        kernels on any device; by default CUDA tensors go through the
-        kernels and CPU tensors through the plain versions."""
+        ``plain=True`` runs the per-prior path with the plain PyTorch
+        versions of the table kernels on any device (the reference).
+        Otherwise a transformer that :meth:`program` packs takes one
+        launch on CUDA tensors (its plain version on CPU tensors), and any
+        other the per-prior path with the kernels on CUDA tensors."""
         ndim = utheta.shape[-1]
         if self.n_param * ncomp != ndim:
             raise ValueError(f"Invalid shape for ncomp={ncomp}: {ndim}")
         lead = utheta.shape[:-1]
-        theta = utheta.reshape(lead + (self.n_param, ncomp)).clone()
-        for prior in self.priors:
-            theta = prior.apply(theta, ncomp, plain)
-        return theta.reshape(lead + (ndim,))
+        if not plain and utheta.dtype == torch.float32:
+            prog = self.program(ncomp, utheta.device)
+            if prog is not None:
+                u = utheta.reshape(-1, ndim).contiguous()
+                return table_ops.prior_transform_fused(prog, u).reshape(
+                    lead + (ndim,))
+        return transform_per_prior(self.priors, utheta, ncomp, plain)
 
     def flat_dims(self, ncomp: int):
         """Unit-cube indices the transform ignores."""
@@ -298,3 +331,60 @@ class PriorTransformer:
             for row in getattr(prior, "unused_param_rows", ()):
                 dims.extend(row * ncomp + i for i in range(ncomp))
         return tuple(sorted(dims))
+
+
+def transform_per_prior(priors, utheta, ncomp: int, plain: bool = False):
+    """Apply ``priors`` in order to ``utheta`` ``[..., n_param*ncomp]``,
+    one prior's operations and table kernels after another (the plain
+    versions with ``plain=True``).  Counts ``prior.split`` unless
+    ``plain``, per launch and per graph replay like a kernel."""
+    lead = utheta.shape[:-1]
+    n_param = sum(p.n_param for p in priors)
+    theta = utheta.reshape(lead + (n_param, ncomp)).clone()
+    for prior in priors:
+        theta = prior.apply(theta, ncomp, plain)
+    if not plain:
+        if utheta.is_cuda:
+            _build.count_launch(transform_per_prior)
+        else:
+            _build.count_call(transform_per_prior)
+    return theta.reshape(lead + (utheta.shape[-1],))
+
+
+transform_per_prior.launches = 0
+transform_per_prior.counter = "prior.split"
+
+
+def _simple_op(prior):
+    """The packed op of a one-row prior, or ``None`` for another class."""
+    cls = type(prior)
+    if cls is Prior:
+        return table_ops.PriorOp(table_ops.PPF, prior.p_ix, dist=prior.dist)
+    if cls is DuplicatePrior:
+        return table_ops.PriorOp(table_ops.DUPLICATE, prior.p_ix,
+                                 prior.p_ix_dup, dist=prior.dist)
+    if cls is ConstantPrior:
+        return table_ops.PriorOp(table_ops.CONSTANT, prior.p_ix,
+                                 value=prior.value)
+    return None
+
+
+def _pack_ops(priors):
+    """The packed ops of ``priors`` in order (a placement as its width
+    prior's op, then its own), or ``None`` where a prior has no op."""
+    ops = []
+    for prior in priors:
+        if type(prior) is ResolvedPlacementPrior:
+            width = _simple_op(prior.sigm_prior)
+            if width is None:
+                return None
+            ops += [width, table_ops.PriorOp(
+                table_ops.PLACEMENT, prior.vcen_prior.p_ix,
+                prior.sigm_prior.p_ix, dist=prior.vcen_prior.dist,
+                value=prior.sep_scale)]
+            continue
+        op = _simple_op(prior)
+        if op is None:
+            return None
+        ops.append(op)
+    return ops

@@ -27,6 +27,7 @@ from nestfit_tpu_torch.priors import (
     get_irdc_priors,
     make_distribution,
 )
+from nestfit_tpu_torch.priors import priors as pr
 from nestfit_tpu_torch.utils import freq_axis_from_velocity
 
 from _k3_inputs import k3_inputs
@@ -406,3 +407,124 @@ def test_hf_lnl_wrapper_rejects_what_the_kernel_does_not_take():
             (theta.shape[0], 4 * 9), device="cuda"))
     with pytest.raises(ValueError, match="exceed"):
         runner.model.fused_lnl(runner.spectra * 5, theta)
+
+
+PRIOR_CASES = {"irdc_c1": (get_irdc_priors, 1),
+               "irdc_c2": (get_irdc_priors, 2),
+               "irdc_c3": (get_irdc_priors, 3),
+               "n2hp_c2": (get_diazenylium_priors, 2),
+               "gauss_c3": (get_gaussian_priors, 3)}
+
+
+def _prior_rows(utrans, ncomp, B, seed):
+    """``[B, n_param * ncomp]`` unit-cube rows on the card: uniform
+    draws, rows of 0 and 1, grid nodes, and a tenth with the widths near
+    the top of their prior (the placement's shrink-to-fit at ncomp 3)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(B, utrans.n_param, ncomp))
+    u[:8], u[8:16] = 0.0, 1.0
+    size = utrans.priors[0].dist.size
+    u[16:216] = rng.integers(0, size, size=(200,) + u.shape[1:]) / (size - 1)
+    u[-B // 10:, utrans.priors[0].sigm_prior.p_ix] = rng.uniform(
+        0.99, 1.0, size=(B // 10, ncomp))
+    return torch.as_tensor(u.reshape(B, -1), dtype=torch.float32,
+                           device="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [3200, 51200])
+@pytest.mark.parametrize("case", list(PRIOR_CASES))
+def test_prior_transform_kernel_equals_plain(case, B):
+    """The one-launch transform at the path's widths (the compacted
+    slice round, the candidate round) is its plain version, the per-prior
+    plain path and the per-prior kernel path, bit for bit."""
+    _card()
+    ctor, ncomp = PRIOR_CASES[case]
+    utrans = ctor()
+    u = _prior_rows(utrans, ncomp, B, seed=B + ncomp)
+    prog = utrans.program(ncomp, u.device)
+    n0 = tables.prior_transform_fused.launches
+    got = tables.prior_transform_fused(prog, u)
+    assert tables.prior_transform_fused.launches == n0 + 1
+    assert torch.equal(got, tables.prior_transform_plain(prog, u))
+    assert torch.equal(got, utrans.transform(u, ncomp, plain=True))
+    assert torch.equal(got, pr.transform_per_prior(utrans.priors, u, ncomp))
+    assert torch.equal(utrans.transform(u, ncomp), got)
+
+
+@pytest.mark.gpu
+def test_prior_transform_kernel_replays_after_a_rebuild():
+    """The launch captured in a CUDA graph reads the tables by address:
+    replayed after another transformer and a runner on this one were
+    built in between, on new rows, it equals the eager launch and the
+    plain version."""
+    _card()
+    utrans = get_irdc_priors()
+    u1 = _prior_rows(utrans, 2, 3200, seed=1)
+    u2 = _prior_rows(utrans, 2, 3200, seed=2)
+    static = u1.clone()
+    eager = utrans.transform(static, 2)   # warm-up
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = utrans.transform(static, 2)
+    from nestfit_tpu_torch.models import AmmoniaRunner
+
+    runner, _ = _lnl_case("nh3_c2")
+    AmmoniaRunner(runner.spectra, utrans, ncomp=2, device="cuda")
+    get_irdc_priors().transform(u2, 2)
+    n0 = tables.prior_transform_fused.launches
+    for u in (u2, u1):
+        static.copy_(u)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, utrans.transform(u, 2, plain=True))
+        assert torch.equal(out, utrans.transform(u, 2))
+    assert torch.equal(out, eager)
+    # the two eager launches; a bare replay counts nothing
+    assert tables.prior_transform_fused.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segment_iters", [250, 0])
+def test_fit_batch_through_the_one_launch_equals_the_per_prior_path(
+        segment_iters, monkeypatch):
+    """A rung-2 NH3 ``fit_batch`` (R = 64, fixed seed) through the one
+    launch and through the per-prior path (the dispatch patched to refuse
+    every transformer): the same lnZ, calls and dead points; the first
+    counts only ``prior.fused``, the second only ``prior.split``."""
+    _card()
+    from nestfit_tpu_torch import synth
+    from nestfit_tpu_torch.models import AmmoniaRunner
+    from nestfit_tpu_torch.sampling import NSConfig, fit_batch, graphs
+    from nestfit_tpu_torch.utils import profiling
+
+    arrays = synth.make_synth_cube_arrays(
+        n_pix=64, noise=0.15, rng=np.random.default_rng(0))[:2]
+    specs = [ammonia.make_ammonia_spectrum(x, d, np.full(64, 0.15),
+                                           trans_id=t, device="cuda")
+             for t, (x, d) in enumerate(arrays, 1)]
+    runner = AmmoniaRunner(specs, get_irdc_priors(), ncomp=2, device="cuda")
+    cfg = NSConfig(nlive=100, tol=1.0, init_factor=4)
+
+    def fit():
+        graphs.clear()
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        with profiling.collect() as tr:
+            res = fit_batch(gen, runner, 64, cfg, n_post=64,
+                            segment_iters=segment_iters, device="cuda")
+        torch.cuda.synchronize()
+        return res.ns, tr.counters
+
+    fused_ns, c_fused = fit()
+    monkeypatch.setattr(pr.PriorTransformer, "program",
+                        lambda self, ncomp, device: None)
+    split_ns, c_split = fit()
+    graphs.clear()
+    for f in ("lnz", "lnz_err", "ncall", "n_dead", "dead_u", "dead_lnl",
+              "dead_lnw", "live_u", "live_lnl"):
+        assert torch.equal(getattr(fused_ns, f), getattr(split_ns, f)), f
+    assert c_fused["prior.fused"] > 0 and "prior.split" not in c_fused
+    assert c_split["prior.split"] == c_fused["prior.fused"]
+    assert "prior.fused" not in c_split

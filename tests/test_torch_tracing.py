@@ -292,3 +292,30 @@ def test_k1_counters_count_each_replay_of_a_ladder_batch():
     assert n["k1.lnl_fused"] > n["ns.graph_steps"] > 0
     assert "k1.lnl_split" not in n
     assert fused.hf_chi2_fused.launches == s0
+
+
+@pytest.mark.gpu
+def test_prior_counters_count_each_replay_of_a_ladder_batch():
+    """On the card every prior transform of a ladder batch (the sampler's
+    and the products') is one launch of the prior kernel, most of them
+    inside replayed graphs: the batch's ``prior.fused`` equals the
+    wrapper's launch count, exceeds the graph replays, and neither the
+    per-prior path nor K2/K3 ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nestfit_tpu_torch.ops import tables
+
+    fitter = CubeFitter(
+        synth_stack(tcube), get_irdc_priors(vsys=0.0, device="cuda"),
+        AmmoniaRunner, device="cuda", batch_size=8, nlive_buckets=1,
+        ncomp_max=2, ns_kwargs={"nlive": 16, "tol": 5.0, "max_iter": 300},
+        segment_iters=64)
+    n0 = tables.prior_transform_fused.launches
+    k0 = tables.table_lerp.launches + tables.tapered_invert.launches
+    (b,) = list(fitter._fit_batches(seed=11))
+    torch.cuda.synchronize()
+    n = b.trace.counters
+    assert n["prior.fused"] == tables.prior_transform_fused.launches - n0
+    assert n["prior.fused"] > n["ns.graph_steps"] > 0
+    assert "prior.split" not in n
+    assert tables.table_lerp.launches + tables.tapered_invert.launches == k0

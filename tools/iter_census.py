@@ -8,7 +8,11 @@ components, noise 0.1); a second call on the kept graphs runs under
 ``torch.profiler``.  The device events (kernels, copies, sets) that
 start inside each ``ns.segment`` span are counted against the span's
 iterations, for the candidate and the kill+slice regimes apart, and
-K1's (kernels named ``hf_chi2*``) among them.  One JSON line.
+split into K1's (kernels named ``hf_chi2*``), the one-launch prior
+transform's (``prior_transform*``), the per-prior path's K2/K3
+(``table_lerp*``, ``tapered_invert*``) and the rest.  The recorder's
+``k1.``, ``prior.`` and sampler counters come beside them.  One JSON
+line.
 
 Run from the root of the repository, on a card::
 
@@ -67,9 +71,14 @@ def n2hp_runner(R):
                              ncomp=2, device="cuda")
 
 
+KINDS = {"k1": ("hf_chi2",), "prior": ("prior_transform",),
+         "k2_k3": ("table_lerp", "tapered_invert")}
+
+
 def census(runner, R):
-    """``{regime: {ops_per_iter, k1_per_iter, iters}}`` of the profiled
-    call, and the recorder's K1 and sampler counters."""
+    """``{regime: {ops_per_iter, <kind>_per_iter for kind in KINDS and
+    rest_per_iter, iters}}`` of the profiled call, and the recorder's K1,
+    prior and sampler counters."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     fit_batch(gen, runner, R, CFG, segment_iters=250, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -80,20 +89,28 @@ def census(runner, R):
                  for e in prof.profiler.kineto_results.events()
                  if e.device_type() == torch.autograd.DeviceType.CUDA)
     starts = np.array([t for t, _ in evs], dtype=np.int64)
-    k1 = np.array(["hf_chi2" in n for _, n in evs])
+    kind = {k: np.array([any(p in n for p in pats) for _, n in evs])
+            for k, pats in KINDS.items()}
     by = {}
     for name, t0, t1, _depth, attrs in tr.spans:
         if name != "ns.segment":
             continue
         lo, hi = np.searchsorted(starts, [t0, t1])
-        ops, k1s, iters = by.get(attrs["mode"], (0, 0, 0))
-        by[attrs["mode"]] = (ops + int(hi - lo), k1s + int(k1[lo:hi].sum()),
-                             iters + attrs["i1"] - attrs["i0"])
-    out = {mode: {"ops_per_iter": o / max(i, 1),
-                  "k1_per_iter": k / max(i, 1), "iters": i}
-           for mode, (o, k, i) in by.items()}
+        n = by.setdefault(attrs["mode"], dict.fromkeys(
+            ["ops", "iters", *KINDS], 0))
+        n["ops"] += int(hi - lo)
+        n["iters"] += attrs["i1"] - attrs["i0"]
+        for k, hit in kind.items():
+            n[k] += int(hit[lo:hi].sum())
+    out = {}
+    for mode, n in by.items():
+        it = max(n["iters"], 1)
+        out[mode] = {"ops_per_iter": n["ops"] / it,
+                     **{f"{k}_per_iter": n[k] / it for k in KINDS},
+                     "rest_per_iter": (n["ops"] - sum(n[k] for k in KINDS))
+                     / it, "iters": n["iters"]}
     out["counters"] = {k: v for k, v in tr.counters.items()
-                       if k.startswith(("k1.", "ns.iterations",
+                       if k.startswith(("k1.", "prior.", "ns.iterations",
                                         "ns.graph"))}
     return out
 
