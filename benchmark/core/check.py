@@ -31,10 +31,13 @@ the rows drawn from the seed:
 - ``ladder_mismatch`` [count] (cube entry): places where the runs that
   covered a pixel, or the records and ``nbest`` handed back for it, part
   from the ladder's rules replayed on the reported evidences, pixel by
-  pixel (``reference/ladder.py``), and rows of a call that are no pixel
-  of the cube; every record must hold the kept run's numbers exactly.
+  pixel (``reference/ladder.py``), from the live-point level that the
+  reference's SNR bucket plan gives the pixel (``reference/levels.py``),
+  and rows of a call that are no pixel of the cube; every record must
+  hold the kept run's numbers exactly.
 - ``failed_px`` [count]: pixels of the window that no record came back
-  for.
+  for (cube entry: pixels of the cube that no batch the window yielded
+  holds).
 
 The control is the reference put in the program's place at a lower
 precision (``control_dtype``): from the same unit-cube points it
@@ -47,7 +50,7 @@ import numpy as np
 import torch
 
 from core import gen
-from reference import evidence, hyperfine, ladder, priors
+from reference import evidence, hyperfine, ladder, levels, priors
 
 NEG_HALF = -5e29      # the program masks points at -1e30
 CHUNK = 2048
@@ -264,11 +267,15 @@ def judge(config, inputs, tap, units, entry, device="cpu",
                    for p, n, rec in b.records}
         cat = (lambda xs: np.concatenate(xs)) if batches else \
             (lambda xs: np.zeros(0, dtype=np.int64))
-        bad = ladder.replay(
-            tap.runs, records, cat([b.nbest for b in batches]),
-            cat([b.pixel_ix for b in batches]),
-            cat([np.full(b.pixel_ix.size, b.nlive) for b in batches]), rule)
+        plan = levels.plan(config, [d for _, _, d in inputs.spectra],
+                           inputs.rms)
+        pixels = cat([b.pixel_ix for b in batches])
+        bad = ladder.replay(tap.runs, records,
+                            cat([b.nbest for b in batches]), pixels,
+                            plan.level[pixels], rule)
         prog["ladder_mismatch"] = len(bad) + unplaced
+        prog["failed_px"] = int(np.setdiff1d(
+            np.arange(plan.level.size), pixels).size)
         notes += bad[:10]
     return prog, cont, notes
 

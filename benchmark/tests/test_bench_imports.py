@@ -35,7 +35,8 @@ def test_the_reference_imports_nothing_of_the_program():
         assert "nestfit_tpu_torch" not in _imports(path), path
     code = ("import sys; sys.path[:0] = [%r]\n"
             "import reference.evidence, reference.hyperfine, "
-            "reference.ladder, reference.priors, reference.model_ammonia, "
+            "reference.ladder, reference.levels, reference.priors, "
+            "reference.model_ammonia, "
             "reference.model_diazenylium\n"
             "print(sorted({m.split('.')[0] for m in sys.modules}))"
             % str(BENCH))

@@ -17,7 +17,7 @@ CUBE_METRICS = {"refit_wall_share.cube", "evals_per_px.cube",
                 "device_idle.cube", "k1_roofline.cube", "step_mfu.cube",
                 "host_syncs_per_iter.cube", "launches_per_iter.cube",
                 "sampler_idle_share.cube", "graph_step_share.cube",
-                "refit_rows_per_px.cube"}
+                "refit_rows_per_px.cube", "lnl_fused_share.cube"}
 
 
 def test_the_cell_reports_the_cube_metrics():
