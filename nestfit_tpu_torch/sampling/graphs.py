@@ -44,8 +44,10 @@ The kernel wrappers count their launches on the host, which a replay
 does not reach: a capture records how many launches its unit holds, and
 every replay adds them to the counters.  The units count
 ``ns.graph_steps`` (replays), ``ns.eager_steps`` (run eagerly on the
-card) and ``ns.graph_captures`` into the recorder; :func:`run_traced`
-also tallies its :class:`TracedStats`.
+card) and ``ns.graph_captures`` into the recorder, and time the eager
+first run of a key that is then captured (span ``graphs.first_run``)
+and its capture (``graphs.capture``); :func:`run_traced` also tallies
+its :class:`TracedStats`.
 
 The dp rows of a mesh run in threads of their own, one program per row.
 Captures take a lock and run in ``"thread_local"`` error mode, so another
@@ -297,8 +299,11 @@ class _Program:
         else:
             # the key's first run is eager, so that whatever its path
             # makes at first use exists; then its graph is captured (a
-            # capture runs nothing) for its later runs
-            self._unit(kind, flag, s)
+            # capture runs nothing) for its later runs.  The span closes
+            # once the eager run's launches are issued.
+            with span("graphs.first_run", kind=kind, rows=s.u.shape[0]) \
+                    if self.capture else contextlib.nullcontext():
+                self._unit(kind, flag, s)
             if self.on_card:
                 count("ns.eager_steps")
             if self.capture:

@@ -50,3 +50,42 @@ def test_graph_matches_eager_on_the_card():
             assert torch.equal(getattr(out[0], f), getattr(res, f)), f
         assert torch.equal(state, gens[0])
     graphs.clear()
+
+
+@pytest.mark.gpu
+def test_each_capture_has_one_timed_first_run_on_the_card():
+    """A segmented run on the card records one ``graphs.first_run`` span
+    (the key's eager run) for each ``ns.graph_captures``, each beside its
+    ``graphs.capture``; a second call on the kept programs replays every
+    unit and records none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nestfit_tpu_torch.utils.profiling import collect
+
+    ndim, R = 3, 256
+    cfg = NSConfig(nlive=20, tol=0.5, min_compact=64)
+    sigma = torch.where(torch.arange(R, device="cuda") % 10 == 0,
+                        0.01, 0.05).to(torch.float32)
+
+    def ll2(u, data):
+        return -0.5 * torch.sum((u - 0.5) ** 2, dim=-1) / data[0] ** 2
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        with collect() as tr:
+            ts._run_nested(gen, ll2, ndim, R, cfg, torch.float32,
+                           (sigma,), 8, True, None)
+        torch.cuda.synchronize()
+        return ([n for n, *_ in tr.spans if n == "graphs.first_run"],
+                [n for n, *_ in tr.spans if n == "graphs.capture"],
+                tr.counters)
+
+    graphs.clear()
+    first, captures, counters = run()
+    assert len(first) == len(captures) == counters["ns.graph_captures"] > 0
+    assert counters["ns.eager_steps"] == len(first)
+    first, captures, counters = run()
+    assert first == captures == []
+    assert "ns.graph_captures" not in counters
+    assert counters["ns.graph_steps"] > 0
+    graphs.clear()

@@ -16,7 +16,7 @@ import torch
 
 from nestfit_tpu_torch.sampling import graphs
 from nestfit_tpu_torch.sampling import sampler as ts
-from nestfit_tpu_torch.utils.profiling import collect
+from nestfit_tpu_torch.utils.profiling import collect, count
 
 NDIM, R = 3, 256
 
@@ -206,3 +206,45 @@ def test_a_runner_on_a_shared_prior_keeps_the_prior_tables():
     after = tables()
     assert len(before) == len(after) > 0
     assert all(a is b for a, b in zip(before, after))
+
+
+def test_first_runs_are_timed_only_where_a_graph_is_captured(monkeypatch):
+    """On the CPU nothing is captured and no ``graphs.first_run`` span is
+    recorded.  With a stand-in capture (its replay runs the unit again on
+    the same static state) the run records one ``graphs.first_run`` for
+    each capture, keeps its result bit for bit, and records none on a
+    second call over the kept programs."""
+    graphs.clear()
+    cfg = ts.NSConfig(nlive=20, tol=0.5, min_compact=64)
+    sigma = _sigma(0)
+    plain, gen_plain, _ = _run(False, cfg, sigma)
+    _, _, tr = _run(True, cfg, sigma)
+    assert not [n for n, *_ in tr.spans if n == "graphs.first_run"]
+    graphs.clear()
+
+    init = graphs._Program.__init__
+
+    def capturing(self, *a, **k):
+        init(self, *a, **k)
+        self.capture = True
+
+    def capture(self, kind, flag, s):
+        count("ns.graph_captures")
+        replay = type("Replay", (), {"replay": staticmethod(
+            lambda: self._unit(kind, flag, s))})
+        return replay, {}
+
+    monkeypatch.setattr(graphs._Program, "__init__", capturing)
+    monkeypatch.setattr(graphs._Program, "_capture", capture)
+    static, gen_static, tr = _run(True, cfg, sigma)
+    _equal(plain, static)
+    assert torch.equal(gen_plain, gen_static)
+    first = [a for n, _t0, _t1, _d, a in tr.spans if n == "graphs.first_run"]
+    assert len(first) == tr.counters["ns.graph_captures"] > 0
+    assert "cand" in {a["kind"] for a in first} <= {"cand", "fill", "slice"}
+    assert {a["rows"] for a in first} == {R, 64}
+    assert tr.counters["ns.graph_steps"] > len(first)
+    _, _, again = _run(True, cfg, sigma)
+    assert not [n for n, *_ in again.spans if n == "graphs.first_run"]
+    assert "ns.graph_captures" not in again.counters
+    graphs.clear()
