@@ -564,6 +564,26 @@ def phase_kernels(seed, n_sm, clock_hz):
               f"kernel {ms:.4f} ms (per call {call:.4f} ms), two-launch path "
               f"{split_ms:.4f} ms (per call {split_call:.4f} ms), plain "
               f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms", flush=True)
+        # masked by a random [T, rows] live mask: the live rows bit for
+        # bit, the rest the sentinel; the list kernel and K1 timed
+        for share in (100, 50, 25):
+            live = torch.as_tensor(np.random.default_rng(seed + share)
+                                   .uniform(size=(T, rows)) < share / 100,
+                                   device="cuda")
+            got_m = fused.hf_lnl_fused(ammonia.lnl_model(), sub.spectra, th,
+                                       live)
+            keep = live.reshape(-1)
+            if not (torch.equal(got_m[keep], got[keep]) and bool(
+                    (got_m[~keep] == np.float32(fused.MASKED_LNL)).all())):
+                raise AssertionError(f"K1 hf_lnl_fused B={T * rows} at "
+                                     f"{share}% live differs from unmasked")
+            ms_m, call_m = time_ms(lambda: fused.hf_lnl_fused(
+                ammonia.lnl_model(), sub.spectra, th, live), 20)
+            rec.update({f"ms_live{share}{suffix}": ms_m,
+                        f"call_ms_live{share}{suffix}": call_m})
+            print(f"K1 one-launch masked ({share}% live, B={T * rows}): "
+                  f"kernels {ms_m:.4f} ms (per call {call_m:.4f} ms), live "
+                  f"rows bit for bit", flush=True)
     rec.update(max_abs_err=worst, bound_by="operations")
     records["hf_lnl_fused"] = rec
 
@@ -864,7 +884,8 @@ def phase_forward(seed):
 @contextlib.contextmanager
 def replay_launches(counters):
     """Tally, by kernel name, the launches that graph replays add to the
-    counters (``_build.add_launches``) while the context is open."""
+    counters (``_build.add_launches``) while the context is open (the
+    replays' other counts, such as K1's rows, are left out)."""
     from nestfit_tpu_torch.ops import _build
 
     names = {fn: k for k, fn in counters.items()}
@@ -873,7 +894,8 @@ def replay_launches(counters):
 
     def counted(per_replay):
         for fn, n in per_replay.items():
-            counts[names[fn]] += n
+            if fn in names:
+                counts[names[fn]] += n
         add(per_replay)
 
     _build.add_launches = counted

@@ -55,6 +55,23 @@
 // no atomics, so a graph replay repeats bit for bit.  One warp per (row,
 // transition) keeps as many warps in flight as the per-transition
 // launches had.
+//
+// The live-lane list.  A caller may say which rows it reads (up to
+// kMaxMasks bool masks, row b live where every mask[k][b % n_k] is set):
+// hf_chi2_live_list_kernel then writes the sentinel -1e30 into the
+// masked rows of out and a list of the live rows, and the likelihood's
+// block i takes list entries i * rows and on, so the live rows run
+// densely packed from the first blocks and every block past the live
+// count exits at once (a masked warp beside a live one would hold its
+// block's slot; the kernel is held to 6-7 blocks an SM by registers).
+// The grid stays fixed by B and nothing is read on the host, so a
+// captured graph replays the pair unchanged.  A live row runs the same
+// code as in an unmasked launch: its lnL is the same bit for bit.  The
+// list kernel's blocks take their offsets from an atomic cursor; the
+// last block to finish publishes the count, adds it to a running total
+// of live rows, and resets the cursor for the next launch (no memset).
+// Rows are listed in no fixed order across blocks, which changes no
+// row's value.
 
 #include <cuda_runtime.h>
 
@@ -78,6 +95,15 @@ struct LnlTrans {
 struct LnlArgs {
   LnlTrans t[kMaxTrans];
   int n_trans;
+};
+
+// The rows a caller reads: row b is live where m[k][b % n[k]] != 0 for
+// every k < n_masks (bool tensors).
+constexpr int kMaxMasks = 3;
+struct LiveMasks {
+  const unsigned char* m[kMaxMasks];
+  int n[kMaxMasks];
+  int n_masks;
 };
 
 namespace {
@@ -312,14 +338,17 @@ __device__ __forceinline__ float lnl_part(const LnlTrans& tr,
 constexpr int lnl_min_blocks(int K) { return K >= 13 ? 6 : 7; }
 
 // Warp w of a block takes row blockIdx.x * (kLnlWarps / T) + w / T and
-// transition w % T.  One copy of the row code serves every transition,
-// which it reads from the launch's constants by index: a copy a
-// transition (constant indices) ran 1.4x slower on an H100, its code too
-// large for the instruction cache.
+// transition w % T, or with a live-lane list (``list``, its length at
+// ``count``) that entry of the list.  One copy of the row code serves
+// every transition, which it reads from the launch's constants by index:
+// a copy a transition (constant indices) ran 1.4x slower on an H100, its
+// code too large for the instruction cache.
 template <class Prep, int K>
 __global__ void __launch_bounds__(32 * kLnlWarps, lnl_min_blocks(K))
 hf_chi2_lnl_kernel(const float* __restrict__ theta, float* __restrict__ out,
-                   int B, int C, int R, int max_nhf, LnlArgs args) {
+                   int B, int C, int R, int max_nhf, LnlArgs args,
+                   const int* __restrict__ list,
+                   const unsigned int* __restrict__ count) {
   extern __shared__ float4 s_tab[];
   __shared__ float s_comp[kLnlWarps][4 * kMaxComp];
   __shared__ float s_part[kLnlWarps];
@@ -328,8 +357,14 @@ hf_chi2_lnl_kernel(const float* __restrict__ theta, float* __restrict__ out,
   const int T = args.n_trans;
   const int rows = kLnlWarps / T;
   const int t = warp % T;
-  const int b = blockIdx.x * rows + warp / T;
-  const bool live = warp / T < rows && b < B;
+  const int pos = blockIdx.x * rows + warp / T;
+  int n = B;
+  if (list != nullptr) {
+    n = static_cast<int>(*count);
+    if (blockIdx.x * rows >= n) return;   // the whole block: nothing live
+  }
+  const bool live = warp / T < rows && pos < n;
+  const int b = list != nullptr && live ? list[pos] : pos;
   if (live) {
     const float part = lnl_part<Prep, K>(
         args.t[t], theta + static_cast<size_t>(b) * Prep::kParams * C, C,
@@ -344,6 +379,54 @@ hf_chi2_lnl_kernel(const float* __restrict__ theta, float* __restrict__ out,
   }
 }
 
+// The live-lane list of a launch of B rows (see the top of the file):
+// one thread a row, kListThreads a block.  ``sync`` = {cursor, ticket,
+// count}, zero before the first launch on a stream and left zero (but
+// the count) by each; ``total`` gains the launch's live rows.
+constexpr int kListThreads = 256;
+
+__global__ void __launch_bounds__(kListThreads)
+hf_chi2_live_list_kernel(LiveMasks masks, int B, float* __restrict__ out,
+                         int* __restrict__ list, unsigned int* sync,
+                         unsigned long long* total) {
+  __shared__ int s_off[kListThreads / 32];
+  __shared__ int s_base;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kListThreads + threadIdx.x;
+  bool live = b < B;
+#pragma unroll
+  for (int k = 0; k < kMaxMasks; ++k)
+    if (live && k < masks.n_masks) live = masks.m[k][b % masks.n[k]] != 0;
+  if (b < B && !live) out[b] = -1e30f;
+  const unsigned int ballot = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) s_off[warp] = __popc(ballot);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kListThreads / 32; ++w) {
+      const int c = s_off[w];
+      s_off[w] = sum;
+      sum += c;
+    }
+    s_base = static_cast<int>(atomicAdd(&sync[0], static_cast<unsigned>(sum)));
+  }
+  __syncthreads();
+  if (live)
+    list[s_base + s_off[warp] + __popc(ballot & ((1u << lane) - 1u))] = b;
+  if (threadIdx.x == 0) {
+    // every block's cursor add comes before its ticket: the last ticket
+    // sees the final cursor
+    __threadfence();
+    if (atomicAdd(&sync[1], 1u) == gridDim.x - 1) {
+      const unsigned int n = atomicExch(&sync[0], 0u);
+      atomicExch(&sync[1], 0u);
+      sync[2] = n;
+      atomicAdd(total, static_cast<unsigned long long>(n));
+    }
+  }
+}
+
 using Kernel = void (*)(const float*, const float*, const float*,
                         const float*, const float*, const float*,
                         const float*, const float*, const float*, float*,
@@ -355,7 +438,7 @@ const Kernel kKernels[kNumK] = {hf_chi2_kernel<4>, hf_chi2_kernel<8>,
                                 hf_chi2_kernel<16>};
 
 using LnlKernel = void (*)(const float*, float*, int, int, int, int,
-                           LnlArgs);
+                           LnlArgs, const int*, const unsigned int*);
 
 // kLnlKernels[model][i]: model 0 NH3, 1 N2H+ (hf_lnl_launch's ``model``)
 const LnlKernel kLnlKernels[2][kNumK] = {
@@ -412,16 +495,31 @@ extern "C" int hf_chi2_launch(const float* voff, const float* tex,
 // The one-launch likelihood of ``model`` (0 NH3, 1 N2H+): lnL[b] of the
 // packed rows theta [B, N C] over the ``n_trans`` transitions ``trans``
 // (host memory, copied into the launch), on ``stream`` of card
-// ``device``.  Returns as hf_chi2_launch.
+// ``device``.  ``masks`` (host memory; null: every row live) says which
+// rows the caller reads: the live-lane list kernel runs first, into
+// ``list`` [B] with ``sync`` (3 words, this stream's) and ``total`` (see
+// hf_chi2_live_list_kernel), and the masked rows get -1e30.  Returns as
+// hf_chi2_launch.
 extern "C" int hf_lnl_launch(int model, const float* theta, float* out,
                              int B, int C, int R, const LnlTrans* trans,
-                             int n_trans, int device, void* stream) {
+                             int n_trans, const LiveMasks* masks, int* list,
+                             unsigned int* sync, unsigned long long* total,
+                             int device, void* stream) {
   if (B <= 0) return 0;
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   if (model < 0 || model > 1 || C < 1 || C > kMaxComp || R < 1 ||
       B % R != 0 || n_trans < 1 || n_trans > kMaxTrans)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool masked = masks != nullptr && masks->n_masks > 0;
+  if (masked) {
+    if (masks->n_masks > kMaxMasks || list == nullptr || sync == nullptr ||
+        total == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < masks->n_masks; ++k)
+      if (masks->m[k] == nullptr || masks->n[k] < 1 || B % masks->n[k] != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
   LnlArgs args = {};
   args.n_trans = n_trans;
   int S[kMaxTrans];
@@ -447,7 +545,16 @@ extern "C" int hf_lnl_launch(int model, const float* theta, float* out,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<blocks, 32 * kLnlWarps, smem, static_cast<cudaStream_t>(stream)>>>(
-      theta, out, B, C, R, max_nhf, args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (masked) {
+    hf_chi2_live_list_kernel<<<(B + kListThreads - 1) / kListThreads,
+                               kListThreads, 0, st>>>(*masks, B, out, list,
+                                                      sync, total);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<blocks, 32 * kLnlWarps, smem, st>>>(
+      theta, out, B, C, R, max_nhf, args, masked ? list : nullptr,
+      masked ? sync + 2 : nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -168,17 +168,17 @@ def lnl_model():
         lnl_constants)
 
 
-def fused_lnl(spectra, params_flat):
+def fused_lnl(spectra, params_flat, live=None):
     """Ln-likelihood ``[B]`` of flat-batched ``params_flat``
     ``[B, 6*ncomp]`` over ``spectra`` (row ``b`` against data row
     ``b % R``) at the default ``cold``/``lte``: one launch of
     ``ops.fused.hf_lnl_fused`` on CUDA tensors, which computes
     :func:`tau_main` per transition itself; its plain version on CPU
-    tensors."""
+    tensors.  ``live``: the rows the caller reads (``hf_lnl_fused``)."""
     from nestfit_tpu_torch.ops import fused
 
     return fused.hf_lnl_fused(lnl_model(), tuple(spectra),
-                              params_flat.float().contiguous())
+                              params_flat.float().contiguous(), live)
 
 
 def make_ammonia_spectrum(xarr, data, noise, trans_id=1, device="cuda",

@@ -67,16 +67,16 @@ def lnl_model():
                           lambda trans: np.zeros(0, np.float32))
 
 
-def fused_lnl(spectra, params_flat):
+def fused_lnl(spectra, params_flat, live=None):
     """Ln-likelihood ``[B]`` of flat-batched ``params_flat``
     ``[B, 4*ncomp]`` over ``spectra`` (row ``b`` against data row
     ``b % R``): one launch of ``ops.fused.hf_lnl_fused`` on CUDA tensors,
     which computes ``10**ltau`` itself; its plain version on CPU
-    tensors."""
+    tensors.  ``live``: the rows the caller reads (``hf_lnl_fused``)."""
     from nestfit_tpu_torch.ops import fused
 
     return fused.hf_lnl_fused(lnl_model(), tuple(spectra),
-                              params_flat.float().contiguous())
+                              params_flat.float().contiguous(), live)
 
 
 def make_diazenylium_spectrum(xarr, data, noise, trans_id=1, device="cuda",

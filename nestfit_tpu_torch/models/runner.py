@@ -148,11 +148,13 @@ class Runner:
                         and same_device(slices[0][2].dnu.device, self.device)
                         for slices in self.channel_slices))
 
-    def log_likelihood(self, theta, plain: bool = False):
-        """Summed chi-square ln-likelihood over all spectra."""
-        return self._log_likelihood(theta, fused=theta.is_cuda and not plain)
+    def log_likelihood(self, theta, plain: bool = False, live=None):
+        """Summed chi-square ln-likelihood over all spectra (``live``: see
+        :meth:`_log_likelihood`)."""
+        return self._log_likelihood(theta, fused=theta.is_cuda and not plain,
+                                    live=live)
 
-    def _log_likelihood(self, theta, fused: bool):
+    def _log_likelihood(self, theta, fused: bool, live=None):
         """Per spectrum, the chi-square of every channel slice on the
         slice's device, summed on the runner's device, then scaled by
         ``1 / (2 sigma^2)``.
@@ -165,13 +167,19 @@ class Runner:
         ``b % R``, so the per-pixel ``1/(2 sigma^2)`` is tiled ``B // R``
         times.  Otherwise the model's plain ``model_predict`` path,
         broadcast over ``theta``'s leading dims.
+
+        ``live`` (``ops.fused.live_rows``: bool masks shaped as trailing
+        dims of ``theta.shape[:-1]``) names the points the caller reads;
+        the one launch computes only those, the others reading the
+        sampler's log-zero.  Every other path computes every point.
         """
         lead = theta.shape[:-1]
         if fused:
             theta = theta.reshape(-1, theta.shape[-1])
             if self.one_launch:
                 return self.model.fused_lnl(
-                    self.spectra, theta.to(self.device)).reshape(lead)
+                    self.spectra, theta.to(self.device),
+                    live=live).reshape(lead)
         total = 0.0
         for spec, slices in zip(self.spectra, self.channel_slices):
             chi2 = 0.0
@@ -209,10 +217,11 @@ class Runner:
                 self.utrans).to(u.device)
         return ut.transform(u, self.ncomp, plain)
 
-    def loglike_unit(self, u, plain: bool = False):
+    def loglike_unit(self, u, plain: bool = False, live=None):
         """Ln-likelihood straight from unit-cube coordinates (the
-        function the sampler calls)."""
-        return self.log_likelihood(self.transform(u, plain), plain)
+        function the sampler calls; ``live``: the points it reads, see
+        :meth:`_log_likelihood`)."""
+        return self.log_likelihood(self.transform(u, plain), plain, live)
 
     def loglikelihood(self, utheta):
         """Host entry point: the ln-likelihood of unit-cube points

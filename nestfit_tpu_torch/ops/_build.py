@@ -124,19 +124,20 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, under a lock (the dp rows of a
-    mesh launch from threads of their own), and to the recorder's counter
-    that the wrapper names (:func:`count_call`).  While this thread
-    captures a CUDA graph (:func:`recording`), the launch is recorded for
-    the graph instead: it happens at each replay."""
+def count_launch(wrapper, n=1) -> None:
+    """Add ``n`` (one launch, or what a launch counts) to
+    ``wrapper.launches``, under a lock (the dp rows of a mesh launch from
+    threads of their own), and to the recorder's counter that the wrapper
+    names (:func:`count_call`).  While this thread captures a CUDA graph
+    (:func:`recording`), the launch is recorded for the graph instead: it
+    happens at each replay."""
     counts = getattr(_RECORDING, "counts", None)
     if counts is not None:
-        counts[wrapper] = counts.get(wrapper, 0) + 1
+        counts[wrapper] = counts.get(wrapper, 0) + n
         return
     with _COUNT_LOCK:
-        wrapper.launches += 1
-    count_call(wrapper)
+        wrapper.launches += n
+    count_call(wrapper, n)
 
 
 def count_call(wrapper, n=1) -> None:

@@ -9,7 +9,8 @@ opacity nor the prediction ever reaches device memory.  K1 has a second
 entry, :func:`hf_lnl_fused`: the whole ln-likelihood of a hyperfine
 model in one launch, from the packed parameter rows, over every
 transition, with the model's per-component step and the noise scaling
-inside the launch.  Each wrapper launches its Hopper kernel for CUDA
+inside the launch; it takes the rows its caller reads (``live``) and
+computes no other.  Each wrapper launches its Hopper kernel for CUDA
 tensors and runs its plain PyTorch version (:func:`hf_chi2_plain`,
 :func:`hf_lnl_plain`, :func:`gauss_chi2_plain`) for CPU tensors.
 """
@@ -25,12 +26,16 @@ from nestfit_tpu_torch.constants import CKMS
 from nestfit_tpu_torch.models import gaussian, hyperfine
 from nestfit_tpu_torch.models.tables import Transition
 from nestfit_tpu_torch.ops import _build
+from nestfit_tpu_torch.utils import profiling
 
 SOURCE = "hf_chi2.cu"
 GAUSS_SOURCE = "gauss_chi2.cu"
 MAX_COMP = 8     # kMaxComp in both sources
 MAX_LINES = 192  # kMaxLines in hf_chi2.cu
 MAX_TRANS = 4    # kMaxTrans in hf_chi2.cu
+MAX_MASKS = 3    # kMaxMasks in hf_chi2.cu
+#: the lnL of a row its caller does not read (the sampler's log-zero)
+MASKED_LNL = -1e30
 # the per-row steps hf_lnl_launch instantiates (its ``model``)
 PREP_AMMONIA = 0
 PREP_DIAZENYLIUM = 1
@@ -39,10 +44,11 @@ _LINE_TABLES = {}
 _PREP_TABLES = {}
 # 10 pointers, B, C, R, S, nhf, device, stream
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# model, theta, out, B, C, R, transitions, n_trans, device, stream
+# model, theta, out, B, C, R, transitions, n_trans, masks, list, sync,
+# total, device, stream
 _LNL_ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] + [
-    ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_void_p]
+    ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int] + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
 
 
 class _LnlTrans(ctypes.Structure):
@@ -50,6 +56,78 @@ class _LnlTrans(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "dnu", "t0", "tbg", "data", "noise", "lines", "prep")] + [
         (n, ctypes.c_int) for n in ("S", "nhf", "noise_stride", "n_prep")]
+
+
+class _LiveMasks(ctypes.Structure):
+    """``LiveMasks`` of ``hf_chi2.cu``: the rows a launch computes."""
+    _fields_ = [("m", ctypes.c_void_p * MAX_MASKS),
+                ("n", ctypes.c_int * MAX_MASKS), ("n_masks", ctypes.c_int)]
+
+
+class _LaneCount:
+    """A count of K1's one-launch rows, kept as the wrappers keep their
+    launches (``_build.count_launch``: per launch, and per graph replay)
+    under the recorder's counter ``counter``."""
+
+    def __init__(self, counter: str):
+        self.counter, self.launches = counter, 0
+
+
+#: the rows :func:`hf_lnl_fused` was called on, and the live rows counted
+#: on the host (an unmasked launch's, all of them; the plain version's);
+#: a masked launch's live rows are summed on the device (:func:`_live_state`)
+LANES = _LaneCount("k1.lanes")
+LANES_LIVE = _LaneCount("k1.lanes_live")
+_LIVE_STATE = {}
+
+
+def _live_state(dev, stream):
+    """The live-lane list kernel's three words ``{cursor, ticket,
+    count}`` of ``stream`` on ``dev``, zeroed once and kept (a captured
+    graph holds their address, and the kernel leaves them as it found
+    them), and the device's running total of live rows, the recorder's
+    device counter ``k1.lanes_live``.  Made outside a capture: a stream's
+    first masked launch is eager."""
+    key = (str(dev), stream)
+    state = _LIVE_STATE.get(key)
+    if state is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "hf_lnl_fused: the first masked launch on a stream cannot "
+                "be captured; run it once eagerly on that stream first")
+        state = _LIVE_STATE[key] = (
+            torch.zeros((3,), dtype=torch.int32, device=dev),
+            profiling.device_counter("k1.lanes_live", dev))
+    return state
+
+
+def live_rows(live, B: int):
+    """The masks of ``live`` (None, a bool tensor, or a tuple of them)
+    as a tuple, each checked: row ``b`` of a batch of ``B`` rows is live
+    where every mask ``m`` holds ``m.reshape(-1)[b % m.numel()]``, so a
+    mask shaped as the trailing dims of the batch's leading dims
+    broadcasts over the rest."""
+    if live is None:
+        return ()
+    masks = live if isinstance(live, tuple) else (live,)
+    if len(masks) > MAX_MASKS:
+        raise ValueError(f"{len(masks)} live masks exceed the kernel's "
+                         f"{MAX_MASKS}")
+    for m in masks:
+        if m.dtype != torch.bool or m.numel() < 1 or B % m.numel():
+            raise ValueError(f"a live mask must be bool with a number of "
+                             f"elements that divides the {B} rows, got "
+                             f"{m.dtype} {tuple(m.shape)}")
+    return masks
+
+
+def _live_flat(masks, B: int, device):
+    """``[B]`` bool: the rows every mask of ``masks`` keeps."""
+    keep = torch.ones((B,), dtype=torch.bool, device=device)
+    for m in masks:
+        n = m.numel()
+        keep = keep & m.reshape(1, n).expand(B // n, n).reshape(B)
+    return keep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,12 +245,14 @@ hf_chi2_fused.launches = 0
 hf_chi2_fused.counter = "k1.lnl_split"
 
 
-def hf_lnl_plain(model: LnlModel, spectra, params):
+def hf_lnl_plain(model: LnlModel, spectra, params, live=None):
     """Plain PyTorch version of :func:`hf_lnl_fused`: per spectrum, the
     model's per-component step, :func:`hf_chi2_plain` and the scaling by
     ``1 / (2 sigma^2)`` of data row ``b % R``, summed in spectrum order
-    (the runner's per-transition path, in one function)."""
+    (the runner's per-transition path, in one function); the rows that
+    ``live`` masks read :data:`MASKED_LNL`."""
     B = params.shape[0]
+    masks = live_rows(live, B)
     lnl = 0.0
     for spec in spectra:
         trans, voff, tex, tau0, sigm = model.components(spec, params)
@@ -182,10 +262,13 @@ def hf_lnl_plain(model: LnlModel, spectra, params):
         if spec.noise.ndim:
             inv2v = inv2v.repeat(B // spec.noise.shape[0])
         lnl = lnl - chi2 * inv2v
+    if masks:
+        lnl = torch.where(_live_flat(masks, B, params.device), lnl,
+                          MASKED_LNL)
     return lnl
 
 
-def hf_lnl_fused(model: LnlModel, spectra, params):
+def hf_lnl_fused(model: LnlModel, spectra, params, live=None):
     """Ln-likelihood ``[B]`` of the packed parameter rows ``params``
     ``[B, N * C]`` (parameter-major) over every spectrum of ``spectra``:
     ``-sum_t chi2_t[b] / (2 sigma_t[b % R]^2)``, flat row ``b`` held
@@ -194,6 +277,14 @@ def hf_lnl_fused(model: LnlModel, spectra, params):
     one-launch kernel, which runs ``model``'s per-component step itself
     (float32, contiguous, every spectrum on ``params``' device); CPU
     tensors take the plain version.
+
+    ``live`` (:func:`live_rows`: bool masks on ``params``' device) names
+    the rows the caller reads: the others read :data:`MASKED_LNL` and
+    cost no channel loop (on the card a second launch lists the live
+    rows first), and the live ones are those of the unmasked call bit
+    for bit.  The recorder counts the rows (``k1.lanes``) and the live
+    ones (``k1.lanes_live``; a masked launch's on the device, read by
+    ``profiling.read_device_counters``).
     """
     B, P = params.shape
     if P % model.n_params:
@@ -206,9 +297,13 @@ def hf_lnl_fused(model: LnlModel, spectra, params):
         raise ValueError("hf_lnl_fused: the spectra differ in data rows")
     if B % R:
         raise ValueError(f"batch {B} is no multiple of the {R} data rows")
+    masks = live_rows(live, B)
     if params.device.type == "cpu":
         _build.count_call(hf_lnl_fused)
-        return hf_lnl_plain(model, spectra, params)
+        _build.count_call(LANES, B)
+        _build.count_call(LANES_LIVE,
+                          int(_live_flat(masks, B, params.device).sum()))
+        return hf_lnl_plain(model, spectra, params, masks)
     dev = params.device
     if not 1 <= C <= MAX_COMP or not 1 <= len(spectra) <= MAX_TRANS:
         raise ValueError(f"hf_lnl_fused: {C} components / {len(spectra)} "
@@ -239,12 +334,29 @@ def hf_lnl_fused(model: LnlModel, spectra, params):
             prep.numel())
     _check_inputs("hf_lnl_fused", dev, [("params", params, (B, P))])
     out = torch.empty((B,), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    masks_c, rows, sync, total = None, None, None, None
+    if masks:
+        if any(m.device != dev for m in masks):
+            raise ValueError(f"hf_lnl_fused: the live masks must be on {dev}")
+        masks = tuple(m.contiguous() for m in masks)
+        sync, total = _live_state(dev, stream)
+        rows = torch.empty((B,), dtype=torch.int32, device=dev)
+        masks_c = _LiveMasks(
+            (ctypes.c_void_p * MAX_MASKS)(*(m.data_ptr() for m in masks)),
+            (ctypes.c_int * MAX_MASKS)(*(m.numel() for m in masks)),
+            len(masks))
     fn = _build.function(SOURCE, "hf_lnl_launch", _LNL_ARGTYPES)
     rc = fn(model.prep, params.data_ptr(), out.data_ptr(), B, C, R,
-            ctypes.addressof(trans), len(spectra), dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
+            ctypes.addressof(trans), len(spectra),
+            None if masks_c is None else ctypes.addressof(masks_c),
+            *(None if x is None else x.data_ptr()
+              for x in (rows, sync, total)), dev.index, stream)
     _build.check(rc, "hf_lnl_fused")
     _build.count_launch(hf_lnl_fused)
+    _build.count_launch(LANES, B)
+    if not masks:
+        _build.count_launch(LANES_LIVE, B)
     return out
 
 

@@ -48,12 +48,14 @@ class FitResult:
 
 
 def _loglike2_for(runner: Runner, dtype):
-    """``loglike2(u, data)`` of ``runner`` on fresh pixel data, one per
-    runner and dtype, so the traced mode's graphs serve every call on the
-    same runner."""
+    """``loglike2(u, data, live)`` of ``runner`` on fresh pixel data (it
+    takes the sampler's live masks, ``takes_live``), one per runner and
+    dtype, so the traced mode's graphs serve every call on the same
+    runner."""
     def make():
-        def loglike2(u, d):
-            return runner.with_data(d).loglike_unit(u).to(dtype)
+        def loglike2(u, d, live=None):
+            return runner.with_data(d).loglike_unit(u, live=live).to(dtype)
+        loglike2.takes_live = True
         return loglike2, runner
 
     return _memo(("runner", id(runner), dtype), make)

@@ -68,7 +68,12 @@ import torch
 
 from nestfit_tpu_torch.ops import _build
 from nestfit_tpu_torch.sampling import sampler as _s
-from nestfit_tpu_torch.utils.profiling import count, span, to_host
+from nestfit_tpu_torch.utils.profiling import (
+    count,
+    read_device_counters,
+    span,
+    to_host,
+)
 
 log = logging.getLogger("nestfit_tpu_torch.graphs")
 
@@ -380,6 +385,7 @@ def prepare(state: _s._State, loglike2, data, cfg, blocks, key,
             s = prog.run("block", (i0 % be, n_iters), s, stats)
     if prog.on_card:
         torch.cuda.synchronize(state.u.device)
+    read_device_counters(state.u.device)
     return stats
 
 
@@ -416,6 +422,8 @@ def run_traced(state: _s._State, loglike2, data, cfg, shard: int = 0,
             s = prog.run("block", (s.i % be, min(block, cfg.max_iter - s.i)),
                          s, stats)
             count("ns.blocks")
+        # the done read drained the launch queue
+        read_device_counters(state.u.device)
         out = dataclasses.replace(_own(s), bounds=(), gen=state.gen)
     last_stats = _THREAD.stats = stats
     if s.gen is not state.gen:

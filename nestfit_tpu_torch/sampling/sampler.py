@@ -28,7 +28,10 @@ What differs from the JAX package, by design:
 * The shrinkage loop of a slice step runs a fixed number of masked rounds
   (``ceil(max_contract / spec_width)``) instead of stopping when every
   lane has accepted: the extra rounds change nothing a caller reads and
-  save a host sync per round.
+  save a host sync per round.  A likelihood that takes the lanes a
+  caller reads (``takes_live``, :func:`_eval`) computes no lane of a
+  chain that has accepted or is done, and no candidate that cannot be
+  accepted.
 * Randomness comes from one ``torch.Generator``; its stream differs from
   ``jax.random``, so sampler parity is statistical.
 * ``jnp.linalg.cholesky`` returns NaN for a matrix that is not positive
@@ -55,7 +58,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from nestfit_tpu_torch.utils.profiling import count, span, to_host
+from nestfit_tpu_torch.utils.profiling import (
+    count,
+    read_device_counters,
+    span,
+    to_host,
+)
 
 _NEG = -1e30  # sentinel for log-zero; avoids inf-inf NaNs in f32
 
@@ -321,6 +329,16 @@ def _line_bracket(x, dirv, z, nvec, rmax, wrap=None):
     return torch.clamp(t_lo, max=0.0), torch.clamp(t_hi, min=0.0)
 
 
+def _eval(loglike2, u, data, live):
+    """``loglike2(u, data)``; a likelihood that takes the points its caller
+    reads (its ``takes_live`` set) is also given ``live``, bool masks whose
+    AND over trailing dims of ``u.shape[:-1]`` is that set, and may return
+    the log-zero sentinel on the others."""
+    if getattr(loglike2, "takes_live", False):
+        return loglike2(u, data, live)
+    return loglike2(u, data)
+
+
 def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
                   t_hi0, lnl_star, done, cfg, wrap=None):
     """Shrinkage-only slice step from an analytic bracket, with
@@ -331,7 +349,9 @@ def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
     wrapped into the cube only for the likelihood.
 
     Runs the full ``ceil(max_contract / W)`` rounds: once a lane has
-    accepted, later rounds change nothing for it."""
+    accepted, later rounds change nothing for it, and the likelihood is
+    told so (:func:`_eval`: each round's live lanes are those neither
+    done nor accepted, of the proposals within the budget)."""
     W = max(1, min(cfg.spec_width, cfg.max_contract))
     n_rounds = (cfg.max_contract + W - 1) // W
     budget = cfg.max_contract
@@ -361,10 +381,12 @@ def _shrink_slice(loglike2, data, shift, gen, x0, lnl0, dirv, t_lo0,
                 tl = torch.where(t < 0, t, tl)
                 th = torch.where(t >= 0, t, th)
         stack = torch.stack([pt(t) for t in ts], dim=0)
-        lnlp = loglike2(_wrap_pts(stack, wrap).reshape(
-            (-1,) + x0.shape[1:]), data).reshape(
-            (W,) + lnl_star.shape) - shift
         live0 = ~(done | acc)
+        live = live0 if all(wbs) else torch.stack(
+            [live0 if wb else torch.zeros_like(live0) for wb in wbs])
+        lnlp = _eval(loglike2, _wrap_pts(stack, wrap).reshape(
+            (-1,) + x0.shape[1:]), data, live).reshape(
+            (W,) + lnl_star.shape) - shift
         taken = torch.zeros_like(acc)
         for w in range(W):
             if not wbs[w]:
@@ -859,8 +881,11 @@ def _cand_iter(s: _State, loglike2, data, cfg: NSConfig, refresh: bool):
         n_e = torch.clamp(torch.sum(inside, dim=-1), min=1)
         thin = (_rand(gen, (T, R), like) * n_e < 1.0) | use_cube[None, :]
         inb = torch.all((cand >= 0.0) & (cand <= 1.0), dim=-1)
+        # a candidate that is thinned away, out of the cube or of a row
+        # with nothing to fill is never read
         cand_lnl = torch.where(
-            inb, loglike2(torch.clamp(cand, 0.0, 1.0), data) - shift, _NEG)
+            inb, _eval(loglike2, torch.clamp(cand, 0.0, 1.0), data,
+                       (thin, inb, active)) - shift, _NEG)
         okc = (cand_lnl > thresh) & active[None, :] & thin
         ncall = s.ncall + active.to(torch.int32) * T
         # acceptance EMA over union-proposal runs only (cube start-up
@@ -1303,9 +1328,10 @@ def _floored(loglike2, log_zero: float):
     the sampler's log-zero sentinel, so no such point is ever accepted
     or adds evidence (one wrapper per likelihood and floor)."""
     def make():
-        def loglike_lz(u, d):
-            v = loglike2(u, d)
+        def loglike_lz(u, d, live=None):
+            v = _eval(loglike2, u, d, live)
             return torch.where(v > log_zero, v, _NEG)
+        loglike_lz.takes_live = getattr(loglike2, "takes_live", False)
         return loglike_lz, loglike2
 
     return _memo(("log_zero", id(loglike2), float(log_zero)), make)
@@ -1568,6 +1594,8 @@ def _run_segmented(gen, loglike2, ndim, n_runs, cfg, dtype, data,
                       f"done={_n_done(state)} "
                       f"ncall_mean={_ncall_mean(state):.0f}", flush=True)
 
+    # the done read drained the launch queue
+    read_device_counters(state.u.device)
     count("ns.iterations", state.i)
     state = units.close(state)
     with span("ns.finalize"):

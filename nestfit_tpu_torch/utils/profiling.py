@@ -11,6 +11,10 @@ sampler from where their work happens:
 - ``to_host(x, site)``: read a device tensor on the host (a NumPy
   array), counting the read under ``site`` and adding the time the host
   waited in it (the launch queue drains first);
+- ``device_counter(name, device)``: a counter that kernels add to on the
+  device, and ``read_device_counters(device)``: count what they gained
+  since their last read (a caller reads them where the launch queue is
+  already drained);
 - ``collect()``: a context manager that yields the ``Trace`` of
   everything its thread recorded inside it.
 
@@ -37,6 +41,8 @@ class _Local(threading.local):
 
 _local = _Local()
 _exporting = 0     # trace() blocks active in the process
+_DEVICE_COUNTERS = {}   # device -> {name: [int64 tensor, value last read]}
+_DEVICE_LOCK = threading.Lock()
 
 
 def now_ns() -> int:
@@ -153,6 +159,42 @@ def to_host(x: torch.Tensor, site: str):
     c, w = tr.syncs.get(site, (0, 0))
     tr.syncs[site] = (c + 1, w + wait)
     return out
+
+
+def _device_key(device) -> str:
+    """``device`` as a key: a CUDA device without an index is the current
+    one."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
+def device_counter(name: str, device) -> torch.Tensor:
+    """The counter ``name`` on ``device``: a ``[1]`` int64 tensor that
+    kernels add to (as unsigned 64-bit atomics), made once and kept for
+    the process, so a captured graph may hold its address."""
+    key = _device_key(device)
+    with _DEVICE_LOCK:
+        entry = _DEVICE_COUNTERS.setdefault(key, {}).get(name)
+        if entry is None:
+            entry = _DEVICE_COUNTERS[key][name] = [
+                torch.zeros((1,), dtype=torch.int64, device=device), 0]
+        return entry[0]
+
+
+def read_device_counters(device):
+    """Add to each counter what its :func:`device_counter` on ``device``
+    gained since its last read: a host read each (site
+    ``device_counters``), whether or not a :func:`collect` records.
+    Several threads on one device share its counters: each read counts
+    what all of them added since the last."""
+    with _DEVICE_LOCK:
+        for name, entry in _DEVICE_COUNTERS.get(_device_key(device),
+                                                {}).items():
+            value = int(to_host(entry[0], "device_counters")[0])
+            count(name, value - entry[1])
+            entry[1] = value
 
 
 @contextlib.contextmanager

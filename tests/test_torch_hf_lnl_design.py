@@ -88,14 +88,16 @@ def _split(monkeypatch, runner, theta):
 @pytest.mark.parametrize("ncomp", [1, 2])
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_plain_one_launch_matches_the_split_path(monkeypatch, model, ncomp):
-    """The plain version through the runner (one ``k1.lnl_fused`` call)
-    against the per-transition path (one ``k1.lnl_split`` call a
-    transition): the same float32 operations, so equal."""
+    """The plain version through the runner (one ``k1.lnl_fused`` call,
+    its rows all live) against the per-transition path (one
+    ``k1.lnl_split`` call a transition): the same float32 operations, so
+    equal."""
     _, runner, theta = _case(model, ncomp)
     assert runner.one_launch
     with profiling.collect() as tr:
         got = runner._log_likelihood(theta, fused=True)
-    assert tr.counters == {"k1.lnl_fused": 1}
+    assert tr.counters == {"k1.lnl_fused": 1, "k1.lanes": T * R,
+                           "k1.lanes_live": T * R}
     want, counts = _split(monkeypatch, runner, theta)
     assert counts == {"k1.lnl_split": 2}
     assert got.shape == (T, R) and got.dtype == torch.float32

@@ -236,7 +236,11 @@ ADDED_TO = {("sampling/aot.py", "build_plan"): {"segment_iters"},
             # the units of work a segmented run hands its segments (its
             # CUDA graph programs, ``graphs.SegmentedRun``)
             **{("sampling/sampler.py", f): {"units"} for f in (
-                "ns_segment", "ns_segment_slice", "ns_slice_fill")}}
+                "ns_segment", "ns_segment_slice", "ns_slice_fill")},
+            # the points the sampler reads, which K1's one launch alone
+            # computes (``ops.fused.hf_lnl_fused``)
+            **{("models/runner.py", f"Runner.{f}"): {"live"} for f in (
+                "log_likelihood", "loglike_unit")}}
 
 
 def test_every_jax_function_has_its_arguments_and_defaults():

@@ -240,14 +240,15 @@ def _k1_runner(device):
 
 def test_k1_counters_count_the_plain_versions():
     """On the CPU the likelihood entries' plain versions count as their
-    launches: ``k1.lnl_fused`` once an evaluation, ``k1.lnl_split`` once
-    a transition and channel slice."""
+    launches: ``k1.lnl_fused`` once an evaluation (with its rows, all
+    live), ``k1.lnl_split`` once a transition and channel slice."""
     runner, theta = _k1_runner("cpu")
     with prof.collect() as tr:
         runner._log_likelihood(theta, fused=True)
         runner.placed(["cpu", "cpu"])._log_likelihood(theta, fused=True)
         runner.log_likelihood(theta)      # the model_predict path
-    assert tr.counters == {"k1.lnl_fused": 1, "k1.lnl_split": 4}
+    assert tr.counters == {"k1.lnl_fused": 1, "k1.lnl_split": 4,
+                           "k1.lanes": 12, "k1.lanes_live": 12}
 
 
 def test_k1_counters_count_each_replay():
